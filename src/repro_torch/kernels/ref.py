@@ -1,0 +1,122 @@
+"""Plain PyTorch versions of the kernels (the correctness ground truth).
+
+Counterparts of :mod:`repro.kernels.ref`, in the same KERNEL-facing
+head-major layouts (not the model's (B, S, H, d) — ops.py adapts). Each
+kernel wrapper computes these on a CPU tensor; ``chip_smoke.py`` holds the
+CUDA kernels against them on the card.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import rope_freqs
+
+NEG_INF = -1e30
+
+
+def rope_ref(x: torch.Tensor, positions: torch.Tensor,
+             theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., d); positions broadcastable to
+    x.shape[:-1]. Split-halves layout, float32 result."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)
+    ang = positions.float()[..., None] * inv
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def _masked_softmax(logits: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    logits = torch.where(valid, logits,
+                         torch.tensor(NEG_INF, device=logits.device))
+    return torch.softmax(logits, dim=-1)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor,
+                         rope_theta: float | None = None) -> torch.Tensor:
+    """q: (B, H, d); k/v: (B, KV, S, d); lengths: (B,). -> (B, H, d).
+
+    ``rope_theta``: rotate q at position ``lengths - 1`` before attending
+    (the fused-RoPE decode contract — cached k is already rotated)."""
+    b, h, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    g = h // kv
+    if rope_theta is not None:
+        q = rope_ref(q, (lengths - 1)[:, None], rope_theta).to(q.dtype)
+    qg = q.reshape(b, kv, g, d).float()
+    scale = 1.0 / math.sqrt(d)
+    logits = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * scale
+    valid = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
+    p = _masked_softmax(logits, valid[:, None, None, :])
+    o = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    return o.reshape(b, h, d).to(q.dtype)
+
+
+def _gather_head_major(pages: torch.Tensor,
+                       block_tables: torch.Tensor) -> torch.Tensor:
+    """(P, page, KV, d) pool -> (B, KV, nb*page, d) gathered view."""
+    g = pages[block_tables.long()]                  # (B, nb, page, KV, d)
+    b, nb, page, kv, d = g.shape
+    return g.reshape(b, nb * page, kv, d).transpose(1, 2)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               lengths: torch.Tensor,
+                               rope_theta: float | None = None
+                               ) -> torch.Tensor:
+    """Paged flash-decode: gather pages, defer to the dense version.
+
+    q: (B, H, d); k/v pools: (P, page, KV, d) — the kernel's model layout;
+    block_tables: (B, nb) int32 page ids; lengths: (B,). -> (B, H, d).
+    Unallocated table entries hold a valid sentinel page; its contents sit
+    past ``lengths`` and are masked, so the gather-then-attend is exact.
+    """
+    return decode_attention_ref(q, _gather_head_major(k_pages, block_tables),
+                                _gather_head_major(v_pages, block_tables),
+                                lengths, rope_theta=rope_theta)
+
+
+def prefill_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          start_len: torch.Tensor,
+                          rope_theta: float | None = None) -> torch.Tensor:
+    """A C-token chunk against the full cache. q: (B, H, C, d); k/v:
+    (B, KV, S, d) — the cache ALREADY holds the chunk's keys/values at
+    ``start_len .. start_len + C - 1``; start_len: (B,). Chunk token j
+    attends every cache position ``<= start_len + j``. -> (B, H, C, d).
+
+    ``rope_theta``: rotate chunk query j at absolute position
+    ``start_len + j`` before attending."""
+    b, h, c, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    g = h // kv
+    positions = start_len[:, None] + torch.arange(c, device=q.device)  # (B,C)
+    if rope_theta is not None:
+        q = rope_ref(q, positions[:, None, :], rope_theta).to(q.dtype)
+    qg = q.reshape(b, kv, g, c, d).float()
+    scale = 1.0 / math.sqrt(d)
+    logits = torch.einsum("bkgcd,bksd->bkgcs", qg, k.float()) * scale
+    valid = (torch.arange(s, device=q.device)[None, None, :]
+             <= positions[:, :, None])                               # (B,C,S)
+    p = _masked_softmax(logits, valid[:, None, None])
+    o = torch.einsum("bkgcs,bksd->bkgcd", p, v.float())
+    return o.reshape(b, h, c, d).to(q.dtype)
+
+
+def paged_prefill_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                start_len: torch.Tensor,
+                                rope_theta: float | None = None
+                                ) -> torch.Tensor:
+    """Paged prefill chunk: gather pages, defer to the dense version.
+
+    q: (B, H, C, d); k/v pools: (P, page, KV, d); block_tables: (B, nb)
+    int32 page ids; start_len: (B,). -> (B, H, C, d)."""
+    return prefill_attention_ref(q, _gather_head_major(k_pages, block_tables),
+                                 _gather_head_major(v_pages, block_tables),
+                                 start_len, rope_theta=rope_theta)

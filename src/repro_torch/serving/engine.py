@@ -1,0 +1,672 @@
+"""Continuous-batching inference engine on the paged KV cache (PyTorch).
+
+Port of :mod:`repro.serving.engine` for its default, paged path: the same
+slot scheduling through the pluggable
+:class:`~repro_torch.bench.policy.SchedulingPolicy` objects (``fcfs``,
+``chunked``, ``mixed`` step budgets with multi-slot batched prefill,
+``slo_aware``, ...), the same page-gated admission, LRU
+preempt-to-evict with token-identical recompute, radix prefix sharing with
+copy-on-write forks, decode-stall accounting and trace-recorder events —
+and the same :class:`EngineStats` counters. On the same weights and
+requests it emits the JAX engine's token streams.
+
+What differs:
+
+  * the JAX engine's jitted dispatches are eager calls into
+    :class:`~repro_torch.models.factory.ModelBundle`, which write the page
+    pools IN PLACE (``self.cache`` keeps the same tensors);
+  * the engine runs on the model's device; on CUDA every layer's attention
+    goes through the hand-written paged kernels (``repro_torch.kernels``);
+  * ``page_size`` and ``prefill_chunk`` must be given — the JAX engine's
+    TPU autotuner (``repro.kernels.autotune``) is not ported;
+  * ``paged=False`` raises ``NotImplementedError``: the contiguous cache
+    needs the contiguous decode/prefill kernels of a later slice;
+  * the clock is the wall clock. The JAX engine's virtual cost clock,
+    eviction watermarks and fault hooks (crash replay, page stealing,
+    aborts, router probes) serve its scenario runner and resilience
+    layer, which are not ported yet (ROADMAP.md).
+
+Hot path, as in the JAX engine: one ``prefill_chunk_paged`` dispatch per
+chunk (``stats.prefill_dispatches``), one full-batch ``decode_step_paged``
+per step with an ``active`` mask that keeps idle and mid-prefill rows'
+pages untouched, and per-slot lengths mirrored on the host in numpy. Host
+arrays reach the card through pinned, non-blocking copies, so the decode
+loop's one host sync is the argmax fetch (``stats.decode_syncs``).
+"""
+from __future__ import annotations
+
+import math
+import time as _time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.bench.policy import SchedulingPolicy, get_policy
+from repro_torch.models.factory import ModelBundle
+from repro_torch.serving.block_allocator import BlockAllocator, PoolExhausted
+from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.request import Request
+from repro_torch.telemetry.recorder import TraceRecorder
+
+
+@dataclass
+class EngineStats:
+    steps: int = 0
+    decode_tokens: int = 0
+    prefill_tokens: int = 0
+    max_decode_gap_s: float = 0.0
+    prefill_dispatches: int = 0   # prefill_chunk calls (≤ ceil(P/C))
+    decode_syncs: int = 0         # host-device syncs in the decode loop
+    pages_in_use: int = 0         # PEAK pages held at once (paged cache)
+    evictions: int = 0            # preempt-to-evict events (paged cache)
+    recompute_tokens: int = 0     # cached tokens lost to evictions
+    prefix_hit_tokens: int = 0    # prefill tokens served from the trie
+    shared_pages: int = 0         # cached pages mapped into admitted slots
+    cow_forks: int = 0            # shared pages forked on first write
+    # ---- mixed batching (policy.step_budget; schema-1.7 batching block)
+    budget_enabled: bool = False  # a step_budget split was ever applied
+    mixed_steps: int = 0          # steps advancing BOTH prefill and decode
+    decode_ready_time_s: float = 0.0  # phase time with decode rows ready
+    decode_stall_time_s: float = 0.0  # ...of which no decode happened
+
+
+class InferenceEngine:
+    def __init__(self, model: ModelBundle, *, max_slots: int = 4,
+                 max_seq: int = 256,
+                 policy: "str | SchedulingPolicy" = "fcfs",
+                 prefill_chunk: Optional[int] = None,
+                 paged: Optional[bool] = None,
+                 prefix_cache: bool = False,
+                 kv_pages: Optional[int] = None,
+                 page_size: Optional[int] = None,
+                 recorder: Optional[TraceRecorder] = None):
+        #: telemetry: when a recorder is attached the engine emits
+        #: admit/evict instants, one span per prefill-chunk dispatch and
+        #: per decoded row, and a KV-occupancy counter (``kv_pages@``, the
+        #: JAX engine's name with no partition label). recorder=None
+        #: (default) keeps every emit site a single None check.
+        self._recorder = recorder
+        self.model = model
+        self.cfg = model.cfg
+        self.max_slots = max_slots
+        self.max_seq = max_seq
+        self.policy = get_policy(policy)
+        if prefill_chunk is None or page_size is None:
+            # the JAX engine asks its TPU autotuner (repro.kernels.autotune)
+            # for these; the port has no tuner yet (ROADMAP.md)
+            raise ValueError("prefill_chunk and page_size must be given: the "
+                             "autotuner that picks them is not ported")
+        self.prefill_chunk = prefill_chunk
+        self.device = model.device
+        self._t0 = _time.monotonic()
+        self.stats = EngineStats()
+        self._last_decode_t: Optional[float] = None
+
+        # paged only: the contiguous cache needs the contiguous decode and
+        # prefill kernels, which a later slice of the port brings
+        if paged is None:
+            paged = model.cache_pages()
+        if not paged:
+            raise NotImplementedError(
+                "the contiguous KV cache (paged=False) is not ported yet "
+                "(ROADMAP.md: contiguous engine path)")
+        self.params = None
+        page_size = min(page_size, max_seq)
+        max_blocks = math.ceil(max_seq / page_size)
+        # default pool reproduces the contiguous capacity exactly (one
+        # full block table per slot): no eviction pressure, identical
+        # admission — the drop-in configuration
+        if kv_pages is None:
+            kv_pages = max_slots * max_blocks
+        self.page_size = page_size
+        self.kv_pages = kv_pages
+        self.allocator = BlockAllocator(kv_pages, page_size, max_slots,
+                                        max_blocks)
+        if prefix_cache and not model.prefix_shareable():
+            raise ValueError(
+                f"family {self.cfg.family!r} cannot share prefixes: "
+                "its prefill state is not fully page-resident "
+                "(slot-resident SSM state / cross-KV) or its numerics "
+                "are batch-coupled (MoE capacity)")
+        self.prefix = PrefixCache(self.allocator) if prefix_cache else None
+        self.cache = self.model.init_paged_cache(
+            kv_pages, page_size, max_slots, max_seq)
+        # slot-resident leaves only (SSM state / enc-dec cross-KV);
+        # page leaves pass through set_cache_slice untouched, so the
+        # fresh piece can come from a 1-page dummy pool
+        self._fresh_slot = self.model.slice_cache(
+            self.model.init_paged_cache(1, page_size, 1, max_seq), 0)
+        # host mirror: no device sync ever needed to READ a slot's length.
+        # COPY-ON-WRITE invariant: torch.from_numpy ALIASES this buffer on
+        # the CPU (as jnp.asarray may in the JAX engine), so any buffer
+        # already handed to a dispatch must never be mutated in place —
+        # every update below rebinds self.lengths to a fresh array. (The
+        # allocator's block tables follow the same rule internally.)
+        self.lengths = np.zeros((max_slots,), np.int32)
+        self.active: list[Optional[Request]] = [None] * max_slots
+        self.waiting: list[Request] = []
+        self._partial: dict[int, int] = {}   # slot -> prompt tokens prefilled
+        #: slot -> the token sequence to prefill, FROZEN at admission (an
+        #: evicted request re-admits with its generated tokens replayed;
+        #: recomputing it live would grow with every decode step)
+        self._eff: dict[int, np.ndarray] = {}
+        self.done: list[Request] = []
+
+    # ------------------------------------------------------------- setup
+    def load_params(self, params):
+        self.params = params
+
+    def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array as a tensor on the engine's device. On the CPU it
+        aliases the numpy buffer (see the copy-on-write invariant); on a
+        GPU it is staged in pinned memory and copied without blocking, so
+        the host does not wait for the card's queue to drain."""
+        t = torch.from_numpy(arr)
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def now(self) -> float:
+        return _time.monotonic() - self._t0
+
+    # ------------------------------------------------------------ intake
+    def submit(self, req: Request):
+        self.waiting.append(req)
+
+    def _admit_order(self) -> list[Request]:
+        now = self.now()
+        ready = [r for r in self.waiting if r.arrival_s <= now]
+        return self.policy.admit_order(ready, now)
+
+    # --------------------------------------------------------- telemetry
+    def _emit_span(self, kind: str, req: Request, tokens: int,
+                   t0: float, t1: float) -> None:
+        if self._recorder is not None:
+            self._recorder.span(kind, req.app, req.request_id, t0, t1,
+                                chips=1, tokens=tokens)
+
+    def _emit_kv(self) -> None:
+        if self._recorder is not None:
+            self._recorder.counter("kv_pages@", self.now(),
+                                   self.allocator.pages_in_use)
+
+    # ------------------------------------------------------------- paged
+    def _effective_prompt(self, req: Request) -> np.ndarray:
+        """The token sequence a (re-)admitted request must prefill.
+
+        For a fresh request this is the prompt. For an EVICTED request it
+        replays the exact cache the slot held before eviction: prompt, the
+        duplicated last prompt token (the engine's first decode step feeds
+        ``prompt[-1]`` again), then all but the newest generated token —
+        so the recomputed state is bit-comparable and the continuation
+        token-identical to a never-evicted run."""
+        if not req.tokens_out:
+            return np.asarray(req.prompt, np.int32)
+        replay = [int(req.prompt[-1])] + [int(t) for t in req.tokens_out[:-1]]
+        return np.concatenate([np.asarray(req.prompt, np.int32),
+                               np.asarray(replay, np.int32)])
+
+    def _note_pages(self) -> None:
+        self.stats.pages_in_use = max(self.stats.pages_in_use,
+                                      self.allocator.pages_in_use)
+
+    def _evict(self, victim: int) -> None:
+        """Preempt-to-evict: free the victim slot's pages and requeue its
+        request; the tokens it had cached are recomputed on re-admission."""
+        req = self.active[victim]
+        self.stats.evictions += 1
+        self.stats.recompute_tokens += int(self.lengths[victim])
+        if self._recorder is not None:
+            self._recorder.instant("evict", req.app, req.request_id,
+                                   self.now(),
+                                   tokens=int(self.lengths[victim]))
+        self.allocator.free_slot(victim)
+        self.active[victim] = None
+        self._partial.pop(victim, None)
+        self._eff.pop(victim, None)
+        new_lengths = self.lengths.copy()
+        new_lengths[victim] = 0
+        self.lengths = new_lengths
+        self.waiting.insert(0, req)
+        self._emit_kv()
+
+    def _grow_pages(self, slot: int, tokens: int) -> bool:
+        """Ensure the slot's block table covers ``tokens``; reclaims cold
+        prefix pages first, then evicts LRU victims. False when no page
+        can be found (pool smaller than this one row) — the caller
+        finishes the request cache-full."""
+        alloc = self.allocator
+        while True:
+            try:
+                alloc.grow_to(slot, tokens)
+                self._note_pages()
+                self._emit_kv()
+                return True
+            except PoolExhausted:
+                if self.prefix is not None and self.prefix.evict_cold(1):
+                    continue       # cold cached history goes before live state
+                victim = alloc.lru_victim(exclude={slot})
+                if victim is None:
+                    return False
+                self._evict(victim)
+
+    # ------------------------------------------------------ prefix sharing
+    def _cow_guard(self, slot: int, start: int, n: int) -> None:
+        """Copy-on-write barrier: fork every SHARED page the next dispatch
+        writes into (positions ``start .. start+n-1``). Private pages are a
+        refcount check each — no cost when sharing is off or cold."""
+        if self.prefix is None or n <= 0:
+            return
+        alloc = self.allocator
+        ps = alloc.page_size
+        ids = alloc.slot_page_ids(slot)
+        last = min((start + n - 1) // ps, len(ids) - 1)
+        for b in range(start // ps, last + 1):
+            if alloc.ref_count(ids[b]) <= 1:
+                continue
+            while True:
+                try:
+                    old, new = alloc.fork_table(slot, b)
+                    break
+                except PoolExhausted:
+                    if self.prefix.evict_cold(1):
+                        continue
+                    victim = alloc.lru_victim(exclude={slot})
+                    if victim is None:
+                        raise
+                    self._evict(victim)
+            if new != old:
+                self.cache = self.model.copy_page(self.cache, old, new)
+                self.stats.cow_forks += 1
+                self._note_pages()
+                self._emit_kv()
+                if self._recorder is not None:
+                    req = self.active[slot]
+                    self._recorder.instant(
+                        "cow_fork", req.app, req.request_id, self.now(),
+                        meta={"page": int(new)})
+
+    def _publish_prefix(self, slot: int) -> None:
+        """Release-time publish: the slot's prompt-covering pages move
+        into the trie (one retained reference each) instead of dying with
+        the slot — the next request with this prefix maps them back."""
+        if self.prefix is None:
+            return
+        eff = self._eff.get(slot)
+        if eff is None or len(eff) == 0:
+            return
+        npages = self.allocator.pages_needed(len(eff))
+        ids = self.allocator.slot_page_ids(slot)
+        if len(ids) >= npages:
+            self.prefix.insert([int(t) for t in eff], ids[:npages])
+
+    def _prefix_lookup(self, eff: np.ndarray) -> tuple[int, list[int]]:
+        """Longest cached prefix of ``eff``, floored to the prefill-chunk
+        grid so the resumed prefill re-dispatches on exactly the chunk
+        boundaries a from-scratch prefill would use (bit-identical
+        streams); pages are trimmed to what the floored hit covers."""
+        if self.prefix is None:
+            return 0, []
+        matched, pages = self.prefix.lookup([int(t) for t in eff])
+        hit = (matched // self.prefill_chunk) * self.prefill_chunk
+        if hit <= 0:
+            return 0, []
+        return hit, pages[:self.allocator.pages_needed(hit)]
+
+    # ----------------------------------------------------------- prefill
+    def _prefill_slot(self, slot: int, req: Request,
+                      chunk: Optional[int]) -> bool:
+        """Advance the slot's prefill by ``chunk`` tokens (None = all) in
+        ``prefill_chunk_paged`` dispatches of at most ``self.prefill_chunk``
+        tokens each. The slot mask keeps every other row's cache untouched,
+        so no slice/restore copies are needed.
+
+        Dispatch widths are capped at ``self.prefill_chunk`` even for
+        whole-prompt (chunk=None, fcfs) prefill, as in the JAX engine, so
+        both engines dispatch on the same chunk grid."""
+        done_tok = self._partial.get(slot, 0)
+        prompt = self._eff[slot]
+        upto = len(prompt) if chunk is None else min(len(prompt),
+                                                     done_tok + chunk)
+        piece = prompt[done_tok:upto]
+        if len(piece) == 0:
+            return True
+        for lo in range(0, len(piece), self.prefill_chunk):
+            sub = piece[lo:lo + self.prefill_chunk]
+            c = len(sub)
+            tokens = np.zeros((self.max_slots, c), np.int32)
+            tokens[slot] = np.asarray(sub, np.int32)
+            mask = np.zeros((self.max_slots,), bool)
+            mask[slot] = True
+            self.allocator.touch(slot)
+            self._cow_guard(slot, int(self.lengths[slot]), c)
+            t0 = self.now()
+            _, self.cache = self.model.prefill_chunk_paged(
+                self.params, self.cache, self._dev(tokens),
+                self._dev(self.lengths), self._dev(self.allocator.tables),
+                self._dev(mask), None)
+            new_lengths = self.lengths.copy()
+            new_lengths[slot] += c
+            self.lengths = new_lengths
+            self.stats.prefill_tokens += c
+            self.stats.prefill_dispatches += 1
+            # a timestamp per dispatched sub-chunk, so whole-prompt
+            # policies still expose intra-prompt boundaries to step-SLO
+            # accounting (Request.t_prefill)
+            req.t_prefill.append(self.now())
+            self._emit_span("prefill", req, c, t0, self.now())
+        self._partial[slot] = upto
+        return upto >= len(prompt)
+
+    def _prefill_budget_plan(self, prefilling: list[int],
+                             budget: int) -> list[tuple[int, int]]:
+        """Split a prefill token budget across the mid-prefill slots.
+
+        Even split first (every slot gets ``max(budget // n, 1)`` tokens,
+        capped by its remaining prompt and by ``prefill_chunk`` so resumed
+        streams stay on the chunk grid), then a second pass spends any
+        leftover on the already-planned slots. Returns ``[(slot, c)]`` with
+        every ``c > 0``."""
+        plan: list[tuple[int, int]] = []
+        if budget <= 0 or not prefilling:
+            return plan
+        base = max(budget // len(prefilling), 1)
+        rem = budget
+        for slot in prefilling:
+            if rem <= 0:
+                break
+            left = len(self._eff[slot]) - self._partial.get(slot, 0)
+            c = min(rem, base, left, self.prefill_chunk)
+            if c > 0:
+                plan.append((slot, c))
+                rem -= c
+        if rem > 0:
+            for k, (slot, c) in enumerate(plan):
+                if rem <= 0:
+                    break
+                left = (len(self._eff[slot]) - self._partial.get(slot, 0)
+                        - c)
+                extra = min(rem, left, self.prefill_chunk - c)
+                if extra > 0:
+                    plan[k] = (slot, c + extra)
+                    rem -= extra
+        return plan
+
+    def _prefill_batch(self, prefilling: list[int], budget: int) -> bool:
+        """Budgeted prefill phase: advance EVERY mid-prefill slot under a
+        shared token budget, in ONE ``prefill_chunk`` dispatch when the
+        model allows it (``multi_slot_batchable``). Rows with shorter
+        pieces than the dispatch width are tail-padded and length-masked
+        via the per-row ``valid`` count, so each row's cache writes are
+        bit-identical to a solo prefill of the same piece.
+
+        Cost stays per-row serialized (shared hardware serializes service
+        demand), but ``prefill_dispatches`` counts actual dispatches — the
+        tentpole win this stat is meant to show. Returns True when any
+        prefill work was dispatched."""
+        plan = self._prefill_budget_plan(prefilling, budget)
+        if not plan:
+            return False
+        if len(plan) == 1 or not self.model.multi_slot_batchable():
+            # MoE routing couples rows through batch-level capacity: fall
+            # back to per-slot dispatches (same budget, same token grid)
+            for slot, c in plan:
+                self._prefill_slot(slot, self.active[slot], c)
+            return True
+        width = max(c for _, c in plan)
+        tokens = np.zeros((self.max_slots, width), np.int32)
+        mask = np.zeros((self.max_slots,), bool)
+        valid = np.zeros((self.max_slots,), np.int32)
+        for slot, c in plan:
+            done_tok = self._partial.get(slot, 0)
+            piece = self._eff[slot][done_tok:done_tok + c]
+            tokens[slot, :c] = np.asarray(piece, np.int32)
+            mask[slot] = True
+            valid[slot] = c
+            self.allocator.touch(slot)
+            self._cow_guard(slot, int(self.lengths[slot]), c)
+        # uniform widths skip the valid mask entirely, as in the JAX engine
+        val = (None if all(c == width for _, c in plan)
+               else self._dev(valid))
+        _, self.cache = self.model.prefill_chunk_paged(
+            self.params, self.cache, self._dev(tokens),
+            self._dev(self.lengths), self._dev(self.allocator.tables),
+            self._dev(mask), val)
+        self.stats.prefill_dispatches += 1
+        new_lengths = self.lengths.copy()
+        for slot, c in plan:
+            new_lengths[slot] += c
+            self._partial[slot] = self._partial.get(slot, 0) + c
+            self.stats.prefill_tokens += c
+        self.lengths = new_lengths
+        for slot, c in plan:
+            req = self.active[slot]
+            t0 = self.now()
+            req.t_prefill.append(self.now())
+            self._emit_span("prefill", req, c, t0, self.now())
+            if (self._partial[slot] < len(self._eff[slot])
+                    and self._recorder is not None):
+                self._recorder.instant("preempt", req.app, req.request_id,
+                                       self.now())
+        return True
+
+    # ------------------------------------------------------------- steps
+    def step(self) -> list[tuple[int, int]]:
+        """One engine step. Returns [(request_id, token)] emitted."""
+        self.stats.steps += 1
+        emitted: list[tuple[int, int]] = []
+
+        # 1) admit waiting requests into free slots (zeroed state). Paged
+        #    cache: admission is ALSO gated on free pages — each request
+        #    reserves pages for its actual prompt (not the max_seq worst
+        #    case), so small requests keep flowing while a big one waits.
+        for req in self._admit_order():
+            free = [i for i, a in enumerate(self.active) if a is None]
+            if not free:
+                break
+            hit, hit_pages = 0, []
+            eff = self._effective_prompt(req)
+            need_tok = len(eff) + 1
+            if not self.allocator.fits(need_tok):
+                raise RuntimeError(
+                    f"request {req.request_id} needs "
+                    f"{self.allocator.pages_needed(need_tok)} pages but "
+                    f"the pool holds {self.allocator.num_pages} "
+                    f"(block table: {self.allocator.max_blocks}); it "
+                    "can never be admitted")
+            # prefix sharing: cached pages cost a reference, not a
+            # page, and cold trie pages count as reclaimable headroom
+            hit, hit_pages = self._prefix_lookup(eff)
+            fresh = self.allocator.pages_needed(need_tok) - len(hit_pages)
+            reclaim = (self.prefix.reclaimable_pages()
+                       if self.prefix is not None else 0)
+            reclaim = max(0, reclaim - len(hit_pages))
+            in_use_eff = self.allocator.pages_in_use - reclaim
+            if fresh > self.allocator.free_pages + reclaim:
+                continue   # memory-aware: smaller requests may still fit
+            if in_use_eff > 0 and (in_use_eff + len(hit_pages) + fresh
+                                   > self.allocator.num_pages):
+                continue
+            if fresh > self.allocator.free_pages:
+                self.prefix.evict_cold(
+                    fresh - self.allocator.free_pages,
+                    protect=frozenset(hit_pages))
+                if fresh > self.allocator.free_pages:
+                    continue
+            slot = free[0]
+            self.active[slot] = req
+            self.waiting.remove(req)
+            self.policy.on_admit(req)
+            if self._recorder is not None:
+                self._recorder.instant("admit", req.app, req.request_id,
+                                       self.now())
+            self._partial[slot] = hit
+            self._eff[slot] = self._effective_prompt(req)
+            self.allocator.alloc_slot(slot, need_tok, shared=hit_pages)
+            self._note_pages()
+            self._emit_kv()
+            self.cache = self.model.set_cache_slice(self.cache, slot,
+                                                    self._fresh_slot)
+            new_lengths = self.lengths.copy()
+            new_lengths[slot] = hit
+            self.lengths = new_lengths
+            if hit:
+                # fully-hit chunks skip prefill: their pages are mapped,
+                # not recomputed
+                self.stats.prefix_hit_tokens += hit
+                self.stats.shared_pages += len(hit_pages)
+                t0 = self.now()
+                req.t_prefill.append(t0)
+                if self._recorder is not None:
+                    self._recorder.instant(
+                        "prefix_hit", req.app, req.request_id, t0,
+                        tokens=hit, meta={"pages": len(hit_pages)})
+
+        # 2) prefill work — legacy one-slot-per-step, or budgeted multi-slot
+        #    when the policy's step_budget() hook splits the step's tokens
+        prefilling = [i for i, r in enumerate(self.active)
+                      if r is not None and
+                      self._partial.get(i, 0) < len(self._eff[i])]
+        ready0 = [i for i, r in enumerate(self.active)
+                  if r is not None and
+                  self._partial.get(i, 0) >= len(self._eff[i])]
+        t_phase0 = self.now()
+        budget = self.policy.step_budget(self.prefill_chunk,
+                                         len(prefilling), len(ready0))
+        did_prefill = False
+        skip_decode = False
+        if budget is None:
+            if prefilling:
+                slot = prefilling[0]
+                chunk = self.policy.prefill_chunk_tokens(self.prefill_chunk)
+                done = self._prefill_slot(slot, self.active[slot], chunk)
+                did_prefill = True
+                if (not done and chunk is not None
+                        and self._recorder is not None):
+                    # chunk-boundary preemption: the prompt yields the
+                    # engine mid-prefill (the simulator's chunk-remainder
+                    # requeue)
+                    req = self.active[slot]
+                    self._recorder.instant("preempt", req.app,
+                                           req.request_id, self.now())
+                if self.policy.exclusive_prefill:
+                    skip_decode = True  # greedy: prefill ate the whole step
+        else:
+            self.stats.budget_enabled = True
+            pf_budget, _ = budget
+            if prefilling and pf_budget > 0:
+                did_prefill = self._prefill_batch(prefilling, pf_budget)
+
+        # 3) decode step for all fully-prefilled slots
+        decoded_n = 0
+        if not skip_decode:
+            emitted, decoded_n = self._decode_phase()
+
+        # stall accounting: a step during which some row sat decode-ready
+        # (before prefill ran) but no decode token landed is a decode
+        # stall — the head-of-line-blocking the budget hook exists to kill
+        dt = self.now() - t_phase0
+        if ready0:
+            self.stats.decode_ready_time_s += dt
+            if decoded_n == 0:
+                self.stats.decode_stall_time_s += dt
+        if self.stats.budget_enabled and did_prefill and decoded_n > 0:
+            self.stats.mixed_steps += 1
+        return emitted
+
+    def _decode_phase(self) -> tuple[list[tuple[int, int]], int]:
+        """One batched decode dispatch over every fully-prefilled slot —
+        the active mask isolates mid-prefill/idle rows. Returns the
+        ``(request_id, token)`` pairs emitted and how many rows decoded."""
+        emitted: list[tuple[int, int]] = []
+        decoding = [i for i, r in enumerate(self.active)
+                    if r is not None and
+                    self._partial.get(i, 0) >= len(self._eff[i])]
+        if decoding:
+            # page growth before dispatch: the new token writes at position
+            # lengths[i]; growing may evict LRU victims (possibly other
+            # decoding slots — drop those from this step's batch)
+            for i in list(decoding):
+                if self.active[i] is None:
+                    continue   # evicted by an earlier slot's growth
+                if self._grow_pages(i, int(self.lengths[i]) + 1):
+                    # the new token writes into the page covering
+                    # lengths[i]; fork it first if it is shared (evictions
+                    # this triggers are re-filtered below, like growth's)
+                    self._cow_guard(i, int(self.lengths[i]), 1)
+                else:
+                    # pool smaller than this one row: finish cache-full
+                    req = self.active[i]
+                    req.t_done = self.now()
+                    self.done.append(req)
+                    self._publish_prefix(i)
+                    self.allocator.free_slot(i)
+                    self._emit_kv()
+                    self.active[i] = None
+                    self._partial.pop(i, None)
+                    self._eff.pop(i, None)
+            decoding = [i for i in decoding if self.active[i] is not None]
+        if decoding:
+            mask = np.zeros((self.max_slots,), bool)
+            tokens = np.zeros((self.max_slots, 1), np.int32)
+            for i in decoding:
+                mask[i] = True
+                req = self.active[i]
+                tokens[i, 0] = (req.tokens_out[-1] if req.tokens_out
+                                else int(req.prompt[-1]))
+            for i in decoding:
+                self.allocator.touch(i)
+            t_step0 = self.now()
+            logits, self.cache = self.model.decode_step_paged(
+                self.params, self.cache, self._dev(tokens),
+                self._dev(self.lengths), self._dev(self.allocator.tables),
+                self._dev(mask))
+            # the one host sync of the decode loop: fetch the argmaxes. The
+            # tokens reach the host only here, so the step's time is read
+            # after it
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            self.stats.decode_syncs += 1
+            t = self.now()
+            if self._recorder is not None:
+                # one batched dispatch: split the step interval across
+                # rows so busy time is conserved (N overlapping spans
+                # each claiming the full engine would overstate SMACT)
+                dt = (t - t_step0) / len(decoding)
+                for j, i in enumerate(decoding):
+                    self._emit_span("decode", self.active[i], 1,
+                                    t_step0 + j * dt,
+                                    t_step0 + (j + 1) * dt)
+            if self._last_decode_t is not None:
+                self.stats.max_decode_gap_s = max(
+                    self.stats.max_decode_gap_s, t - self._last_decode_t)
+            self._last_decode_t = t
+            self.lengths = self.lengths + mask  # rebind, never mutate
+            for i in decoding:
+                req = self.active[i]
+                tok = int(nxt[i]) % self.cfg.vocab_size
+                req.tokens_out.append(tok)
+                req.t_tokens.append(t)
+                if req.t_first_token is None:
+                    req.t_first_token = t
+                emitted.append((req.request_id, tok))
+                full = int(self.lengths[i]) >= self.max_seq - 1
+                if len(req.tokens_out) >= req.max_new_tokens or full:
+                    req.t_done = t
+                    self.done.append(req)
+                    self._publish_prefix(i)
+                    self.allocator.free_slot(i)
+                    self._emit_kv()
+                    self.active[i] = None
+                    self._partial.pop(i, None)
+                    self._eff.pop(i, None)
+            self.stats.decode_tokens += len(decoding)
+        return emitted, len(decoding)
+
+    def run(self, max_steps: int = 100_000) -> list[Request]:
+        for _ in range(max_steps):
+            if not self.waiting and all(a is None for a in self.active):
+                break
+            self.step()
+        return self.done

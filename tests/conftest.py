@@ -22,3 +22,9 @@ def _clear_jax_caches_between_modules():
     executables between test modules keeps the count bounded."""
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the hand-written kernels); "
+        "skips with a reason elsewhere")
