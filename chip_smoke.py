@@ -10,30 +10,44 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 2. build    — compiles every kernel under src/repro_torch/kernels/csrc with
               nvcc (one process per source, all started together) and
               prints the seconds and ptxas's register/shared-memory report.
-3. kernels  — each kernel's wrapper at the serving path's shapes
-              (tinyllama-1.1b, 4 slots, page 16, 256-token table, chunk 16)
-              against its plain PyTorch version on the same card, with
-              ragged lengths, garbage in the sentinel page and past every
-              length, an idle slot and prefill horizons crossing pages; in
-              q float32 / pools bfloat16 (the serving dtypes) and all
-              float32. Tolerance: 2e-5 absolute + 2e-5 relative (both sides
-              compute in float32 on identical inputs; they differ in
-              summation order). Then times kernel, plain version and one
-              scaled_dot_product_attention call on the gathered view (a
-              yardstick only: the port never calls it).
-4. serve    — repro_torch.launch.serve.main on tinyllama-1.1b at full width
-              (22 layers, random float32 weights from seed 0, bfloat16 KV
-              pool): 8 requests, 4 slots, max-seq 256, 16 new tokens,
-              chunk 16, page 16 — once to warm up, then measured with
-              every kernel's launch count set to 0 just before and read
-              just after. Every request must finish and each kernel must
-              have run 22 times per dispatch. A profiled decode step and
-              prefill chunk show where a dispatch's time goes. Then one
-              prefill chunk and one decode step at full width on the card
-              and, with the same weights and pool, on the CPU path: logits
-              must agree within 1e-3 absolute with a float32 pool and
-              2e-2 with the bfloat16 serving pool (card_vs_cpu_phase says
-              why).
+3. kernels  — each kernel's wrapper at the serving paths' shapes against
+              its plain PyTorch version on the same card:
+              * paged decode / prefill (tinyllama-1.1b, 4 slots, page 16,
+                256-token table, chunk 16): ragged lengths, garbage in the
+                sentinel page and past every length, an idle slot, prefill
+                horizons crossing pages;
+              * contiguous decode / prefill (the same widths, a 256-position
+                slot): decode lengths 37/256/1/0, prefill starts
+                0/7/200/240, the model-layout cache read in place through
+                its strides with garbage in the drop position and past
+                every length;
+              * the SSD chunk scan at mamba2-1.3b's widths (64 heads of 64,
+                state 128), 4 chunks of Q = 16, 13, 1 and 256;
+              attention in q float32 with caches bfloat16 (the serving
+              dtypes) and float32. Tolerance: 2e-5 absolute + 2e-5
+              relative (both sides compute in float32 on identical inputs;
+              they differ in summation order). Then times kernel, plain
+              version and, for attention, one scaled_dot_product_attention
+              call on the pre-rotated, head-expanded view (a yardstick
+              only: the port never calls it; no single PyTorch call
+              computes the SSD chunk).
+4. serve    — repro_torch.launch.serve.main at full width, 8 chat requests,
+              4 slots, max-seq 256, 16 new tokens, chunk 16, policy
+              chunked, random float32 weights from seed 0, on three paths:
+              tinyllama-1.1b on the paged pool (page 16), tinyllama-1.1b on
+              the contiguous cache (paged=False), and mamba2-1.3b (its
+              recurrent state is slot-resident). Each path runs once to
+              warm up, then measured with every kernel's launch count set
+              to 0 just before and read just after: every request must
+              finish, and each kernel of the path must have run exactly
+              (layers x its dispatches) times, the others not at all.
+              Profiled dispatches (paged tinyllama, mamba2) show where a
+              dispatch's time goes. Then one prefill chunk and one decode
+              step of each path at full width on the card and, with the
+              same weights and caches, on the CPU path (mamba2 cut to 8
+              layers on both): logits must agree within 1e-3 absolute with
+              float32 caches and 2e-2 with the bfloat16 serving caches
+              (card_vs_cpu says why).
 5. report   — a JSON line of per-kernel numbers, the nvidia-smi line, and
               last a JSON line naming the device.
 """
@@ -54,9 +68,13 @@ ATOL = RTOL = 2e-5
 
 # serving-path shapes: tinyllama-1.1b, 4 slots, page 16, max-seq 256
 B, H, KV, D, PAGE, NB, C, POOL = 4, 32, 4, 64, 16, 16, 16, 64
+S = NB * PAGE
 DECODE_LENGTHS = [37, 256, 1, 0]   # row 2: one token; row 3: idle slot
 PREFILL_STARTS = [0, 7, 200, 240]
 ROPE_THETA = 10_000.0
+# mamba2-1.3b's SSD widths: heads, head dim, state; rows x chunks
+SSD_H, SSD_P, SSD_N, SSD_M = 64, 64, 128, 4
+SSD_Q = [16, 13, 1, 256]           # 16: the serving chunk (timed)
 
 
 def fail(msg: str) -> None:
@@ -132,6 +150,19 @@ def make_pool(torch, gen, dev, need_pages, pool_dtype):
     return k.to(pool_dtype), v.to(pool_dtype), bt
 
 
+def make_cache(torch, gen, dev, filled, cache_dtype):
+    """Model-layout caches (B, S + 1, KV, d) — the serving cache with its
+    drop position — holding garbage from position ``filled[i]`` of row i
+    on, drop position included; returns the head-major (B, KV, S, d) views
+    of the first S positions that the kernels read in place."""
+    k = torch.randn((B, S + 1, KV, D), generator=gen, device=dev)
+    v = torch.randn((B, S + 1, KV, D), generator=gen, device=dev)
+    for i, n in enumerate(filled):
+        k[i, n:], v[i, n:] = 50.0, -50.0
+    k, v = k.to(cache_dtype), v.to(cache_dtype)
+    return k[:, :S].transpose(1, 2), v[:, :S].transpose(1, 2)
+
+
 def check_close(name, got, want):
     import torch
     err = (got.float() - want.float()).abs()
@@ -144,20 +175,34 @@ def check_close(name, got, want):
     return err.max().item()
 
 
-def decode_bound(lengths):
+def decode_bound(lengths, table_bytes):
     n = sum(lengths)
-    byts = (B * H * D * 4 + n * KV * D * 2 * 2 + B * NB * 4 + B * 4
+    byts = (B * H * D * 4 + n * KV * D * 2 * 2 + table_bytes + B * 4
             + B * H * D * 4)
     flops = 4 * D * H * n
     return byts, flops
 
 
-def prefill_bound(starts):
+def prefill_bound(starts, table_bytes):
     visible = sum(s + C for s in starts)
-    byts = (B * H * C * D * 4 + visible * KV * D * 2 * 2 + B * NB * 4 + B * 4
+    byts = (B * H * C * D * 4 + visible * KV * D * 2 * 2 + table_bytes + B * 4
             + B * H * C * D * 4)
     # row (b, h, c) attends s + c + 1 positions: 2 flops each for q.k and p.v
     flops = sum(4 * D * H * (C * (s + 1) + C * (C - 1) // 2) for s in starts)
+    return byts, flops
+
+
+def ssd_bound(m, q, h, p, n):
+    """Bytes: every input read once (x, dt, cum, B, C) and both outputs
+    written once (y, state), float32. Operations: C·Bᵀ on the lower
+    triangle once per row m (2N each); per head the scores (2 multiplies
+    and an exp), y (2P each), the state weights (an exp and a multiply a
+    position), x·w (P a position) and the state (2PN a position)."""
+    tri = q * (q + 1) // 2
+    byts = 4 * (2 * m * q * h * p + 2 * m * q * h + 2 * m * q * n
+                + m * h * p * n)
+    flops = m * (tri * 2 * n + h * (tri * (3 + 2 * p)
+                                     + q * (2 + p + 2 * p * n)))
     return byts, flops
 
 
@@ -167,21 +212,32 @@ def bound_entry(byts, flops):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(torch, F, pda, ppa, ref):
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    out = {}
+def sdpa_ms(torch, F, q_rot, k_hm, v_hm, mask):
+    """One scaled_dot_product_attention call on the pre-rotated query and
+    the head-expanded (B, H, S, d) cache view: a yardstick, never called
+    by the port."""
+    kg = k_hm.repeat_interleave(H // KV, 1)
+    vg = v_hm.repeat_interleave(H // KV, 1)
+    return timed_ms(torch, lambda: F.scaled_dot_product_attention(
+        q_rot.to(kg.dtype), kg, vg, attn_mask=mask))
 
+
+def row(err, ms, plain_ms, bound, library_ms):
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=library_ms)
+
+
+def paged_kernel_phase(torch, F, K, ref, gen, dev, out):
     # ---------------------------------------------------------- decode
     # the idle row 3 maps no page: its table is all sentinel
     need = [math.ceil(n / PAGE) for n in DECODE_LENGTHS]
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
     q = torch.randn((B, H, D), generator=gen, device=dev)
     active = [i for i, n in enumerate(DECODE_LENGTHS) if n > 0]
+    fn = K["paged_decode_attention"]
     for pool_dtype in (torch.bfloat16, torch.float32):
         k, v, bt = make_pool(torch, gen, dev, need, pool_dtype)
-        got = pda.paged_decode_attention(q, k, v, bt, lengths,
-                                         rope_theta=ROPE_THETA)
+        got = fn(q, k, v, bt, lengths, rope_theta=ROPE_THETA)
         want = ref.paged_decode_attention_ref(q, k, v, bt, lengths,
                                               rope_theta=ROPE_THETA)
         torch.cuda.synchronize()
@@ -192,32 +248,30 @@ def kernel_phase(torch, F, pda, ppa, ref):
         log(f"paged_decode_attention q=float32 pools={pool_dtype}: "
             f"max abs err {err:.3e} (tol {ATOL} + {RTOL}*|plain|)")
         if pool_dtype == torch.bfloat16:
-            ms = timed_ms(torch, lambda: pda.paged_decode_attention(
-                q, k, v, bt, lengths, rope_theta=ROPE_THETA))
+            ms = timed_ms(torch, lambda: fn(q, k, v, bt, lengths,
+                                            rope_theta=ROPE_THETA))
             plain_ms = timed_ms(torch, lambda: ref.paged_decode_attention_ref(
                 q, k, v, bt, lengths, rope_theta=ROPE_THETA))
-            # yardstick: SDPA on the gathered, pre-rotated, head-expanded view
-            kg = ref._gather_head_major(k, bt).repeat_interleave(H // KV, 1)
-            vg = ref._gather_head_major(v, bt).repeat_interleave(H // KV, 1)
             qr = ref.rope_ref(q, (lengths - 1)[:, None], ROPE_THETA)
-            mask = (torch.arange(NB * PAGE, device=dev)[None, :]
+            mask = (torch.arange(S, device=dev)[None, :]
                     < lengths[:, None])[:, None, None, :]
-            lib_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
-                qr[:, :, None].to(kg.dtype), kg, vg, attn_mask=mask))
-            bound_ms, bound_by = bound_entry(*decode_bound(DECODE_LENGTHS))
-            out["paged_decode_attention"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+            lib_ms = sdpa_ms(torch, F, qr[:, :, None],
+                             ref._gather_head_major(k, bt),
+                             ref._gather_head_major(v, bt), mask)
+            out["paged_decode_attention"] = row(
+                err, ms, plain_ms,
+                bound_entry(*decode_bound(DECODE_LENGTHS, B * NB * 4)),
+                lib_ms)
 
     # --------------------------------------------------------- prefill
     need = [math.ceil((s + C) / PAGE) for s in PREFILL_STARTS]
     start = torch.tensor(PREFILL_STARTS, dtype=torch.int32, device=dev)
     # model layout (B, C, H, d) seen head-major, as ops passes it
     qc = torch.randn((B, C, H, D), generator=gen, device=dev).transpose(1, 2)
+    fn = K["paged_prefill_attention"]
     for pool_dtype in (torch.bfloat16, torch.float32):
         k, v, bt = make_pool(torch, gen, dev, need, pool_dtype)
-        got = ppa.paged_prefill_attention(qc, k, v, bt, start,
-                                          rope_theta=ROPE_THETA)
+        got = fn(qc, k, v, bt, start, rope_theta=ROPE_THETA)
         want = ref.paged_prefill_attention_ref(qc, k, v, bt, start,
                                                rope_theta=ROPE_THETA)
         torch.cuda.synchronize()
@@ -225,26 +279,132 @@ def kernel_phase(torch, F, pda, ppa, ref):
         log(f"paged_prefill_attention q=float32 pools={pool_dtype}: "
             f"max abs err {err:.3e} (tol {ATOL} + {RTOL}*|plain|)")
         if pool_dtype == torch.bfloat16:
-            ms = timed_ms(torch, lambda: ppa.paged_prefill_attention(
-                qc, k, v, bt, start, rope_theta=ROPE_THETA))
+            ms = timed_ms(torch, lambda: fn(qc, k, v, bt, start,
+                                            rope_theta=ROPE_THETA))
             plain_ms = timed_ms(torch, lambda: ref.paged_prefill_attention_ref(
                 qc, k, v, bt, start, rope_theta=ROPE_THETA))
-            kg = ref._gather_head_major(k, bt).repeat_interleave(H // KV, 1)
-            vg = ref._gather_head_major(v, bt).repeat_interleave(H // KV, 1)
             pos = start[:, None] + torch.arange(C, device=dev)
             qr = ref.rope_ref(qc, pos[:, None, :], ROPE_THETA)
-            mask = (torch.arange(NB * PAGE, device=dev)[None, None, :]
+            mask = (torch.arange(S, device=dev)[None, None, :]
                     <= pos[:, :, None])[:, None]
-            lib_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
-                qr.to(kg.dtype), kg, vg, attn_mask=mask))
-            bound_ms, bound_by = bound_entry(*prefill_bound(PREFILL_STARTS))
-            out["paged_prefill_attention"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
-    for name, row in out.items():
-        log(f"{name}: kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f}"
-            f" ms | sdpa yardstick {row['library_ms']:.4f} ms | bound "
-            f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+            lib_ms = sdpa_ms(torch, F, qr, ref._gather_head_major(k, bt),
+                             ref._gather_head_major(v, bt), mask)
+            out["paged_prefill_attention"] = row(
+                err, ms, plain_ms,
+                bound_entry(*prefill_bound(PREFILL_STARTS, B * NB * 4)),
+                lib_ms)
+
+
+def contiguous_kernel_phase(torch, F, K, ref, gen, dev, out):
+    # ---------------------------------------------------------- decode
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    active = [i for i, n in enumerate(DECODE_LENGTHS) if n > 0]
+    fn = K["decode_attention"]
+    for cache_dtype in (torch.bfloat16, torch.float32):
+        k, v = make_cache(torch, gen, dev, DECODE_LENGTHS, cache_dtype)
+        got = fn(q, k, v, lengths, rope_theta=ROPE_THETA)
+        want = ref.decode_attention_ref(q, k, v, lengths,
+                                        rope_theta=ROPE_THETA)
+        torch.cuda.synchronize()
+        err = check_close(f"decode_attention[{cache_dtype}]", got[active],
+                          want[active])
+        if not torch.all(got[3] == 0):
+            fail("decode_attention: a length-0 row must give 0")
+        log(f"decode_attention q=float32 cache={cache_dtype}: max abs err "
+            f"{err:.3e} (tol {ATOL} + {RTOL}*|plain|)")
+        if cache_dtype == torch.bfloat16:
+            ms = timed_ms(torch, lambda: fn(q, k, v, lengths,
+                                            rope_theta=ROPE_THETA))
+            plain_ms = timed_ms(torch, lambda: ref.decode_attention_ref(
+                q, k, v, lengths, rope_theta=ROPE_THETA))
+            qr = ref.rope_ref(q, (lengths - 1)[:, None], ROPE_THETA)
+            mask = (torch.arange(S, device=dev)[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            lib_ms = sdpa_ms(torch, F, qr[:, :, None], k, v, mask)
+            out["decode_attention"] = row(
+                err, ms, plain_ms,
+                bound_entry(*decode_bound(DECODE_LENGTHS, 0)), lib_ms)
+
+    # --------------------------------------------------------- prefill
+    start = torch.tensor(PREFILL_STARTS, dtype=torch.int32, device=dev)
+    qc = torch.randn((B, C, H, D), generator=gen, device=dev).transpose(1, 2)
+    fn = K["prefill_attention"]
+    for cache_dtype in (torch.bfloat16, torch.float32):
+        k, v = make_cache(torch, gen, dev, [s + C for s in PREFILL_STARTS],
+                          cache_dtype)
+        got = fn(qc, k, v, start, rope_theta=ROPE_THETA)
+        want = ref.prefill_attention_ref(qc, k, v, start,
+                                         rope_theta=ROPE_THETA)
+        torch.cuda.synchronize()
+        err = check_close(f"prefill_attention[{cache_dtype}]", got, want)
+        log(f"prefill_attention q=float32 cache={cache_dtype}: max abs err "
+            f"{err:.3e} (tol {ATOL} + {RTOL}*|plain|)")
+        if cache_dtype == torch.bfloat16:
+            ms = timed_ms(torch, lambda: fn(qc, k, v, start,
+                                            rope_theta=ROPE_THETA))
+            plain_ms = timed_ms(torch, lambda: ref.prefill_attention_ref(
+                qc, k, v, start, rope_theta=ROPE_THETA))
+            pos = start[:, None] + torch.arange(C, device=dev)
+            qr = ref.rope_ref(qc, pos[:, None, :], ROPE_THETA)
+            mask = (torch.arange(S, device=dev)[None, None, :]
+                    <= pos[:, :, None])[:, None]
+            lib_ms = sdpa_ms(torch, F, qr, k, v, mask)
+            out["prefill_attention"] = row(
+                err, ms, plain_ms,
+                bound_entry(*prefill_bound(PREFILL_STARTS, 0)), lib_ms)
+
+
+def ssd_inputs(torch, gen, dev, q):
+    """SSD chunk inputs shaped as mamba2 makes them: dt > 0 and A < 0, so
+    cum falls along the chunk and exp(cum_i - cum_j) overflows above the
+    diagonal at Q = 256."""
+    m, h, p, n = SSD_M, SSD_H, SSD_P, SSD_N
+    x = torch.randn((m, q, h, p), generator=gen, device=dev)
+    dt = 0.3 + 0.7 * torch.rand((m, q, h), generator=gen, device=dev)
+    a = -(0.5 + torch.rand((h,), generator=gen, device=dev))
+    cum = torch.cumsum(dt * a, dim=1)
+    b_ = 0.3 * torch.randn((m, q, n), generator=gen, device=dev)
+    c_ = 0.3 * torch.randn((m, q, n), generator=gen, device=dev)
+    return x, dt, cum, b_, c_
+
+
+def ssd_kernel_phase(torch, K, ref, gen, dev, out):
+    fn = K["ssd_chunk_scan"]
+    errs = []
+    for q in SSD_Q:
+        args = ssd_inputs(torch, gen, dev, q)
+        y, st = fn(*args)
+        want_y, want_st = ref.ssd_chunk_ref(*args)
+        torch.cuda.synchronize()
+        err = max(check_close(f"ssd_chunk_scan y [Q={q}]", y, want_y),
+                  check_close(f"ssd_chunk_scan state [Q={q}]", st, want_st))
+        errs.append(err)
+        ms = timed_ms(torch, lambda: fn(*args))
+        plain_ms = timed_ms(torch, lambda: ref.ssd_chunk_ref(*args))
+        bound = bound_entry(*ssd_bound(SSD_M, q, SSD_H, SSD_P, SSD_N))
+        log(f"ssd_chunk_scan M={SSD_M} Q={q} H={SSD_H} P={SSD_P} "
+            f"N={SSD_N}: max abs err {err:.3e} (tol {ATOL} + "
+            f"{RTOL}*|plain|) | kernel {ms:.4f} ms | plain {plain_ms:.4f} "
+            f"ms | bound {bound[0]:.6f} ms ({bound[1]})")
+        if q == SSD_Q[0]:
+            out["ssd_chunk_scan"] = row(0.0, ms, plain_ms, bound, None)
+    out["ssd_chunk_scan"]["max_abs_err"] = max(errs)
+
+
+def kernel_phase(torch, F, K, ref):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    out = {}
+    paged_kernel_phase(torch, F, K, ref, gen, dev, out)
+    contiguous_kernel_phase(torch, F, K, ref, gen, dev, out)
+    ssd_kernel_phase(torch, K, ref, gen, dev, out)
+    for name, r in out.items():
+        lib = ("—" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        log(f"{name}: kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms"
+            f" | sdpa yardstick {lib} | bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']})")
     return out
 
 
@@ -253,75 +413,79 @@ SERVE_ARGV = ["--arch", "tinyllama-1.1b", "--requests", "8", "--slots", "4",
               "--max-seq", "256", "--max-new", "16", "--prefill-chunk", "16",
               "--page-size", "16", "--policy", "chunked", "--device", "cuda",
               "--seed", "0"]
+MAMBA_ARGV = ["--arch", "mamba2-1.3b"] + SERVE_ARGV[2:]
+
+#: each serving path: its CLI and ``paged`` argument, the cache it must
+#: serve on, the width it must run at, and which kernel runs once per
+#: layer in which of its dispatches
+PATHS = {
+    "paged tinyllama-1.1b": dict(
+        argv=SERVE_ARGV, paged=None, cache="paged", layers=22, d_model=2048,
+        kernels={"paged_decode_attention": "decode_syncs",
+                 "paged_prefill_attention": "prefill_dispatches"}),
+    "contiguous tinyllama-1.1b": dict(
+        argv=SERVE_ARGV, paged=False, cache="contiguous", layers=22,
+        d_model=2048,
+        kernels={"decode_attention": "decode_syncs",
+                 "prefill_attention": "prefill_dispatches"}),
+    "mamba2-1.3b": dict(
+        argv=MAMBA_ARGV, paged=None, cache="contiguous", layers=48,
+        d_model=2048,
+        kernels={"ssd_chunk_scan": "prefill_dispatches"}),
+}
 
 
-def serve_phase(torch, serve, pda, ppa):
+def serve_phase(torch, serve, K, path):
     """A warm-up run (cuBLAS heuristics, lazy module loading: paid once per
-    process, not per request), then the measured run with every kernel's
-    launch count set to 0 just before it and read just after."""
+    process and shape, not per request), then the measured run with every
+    kernel's launch count set to 0 just before it and read just after."""
+    spec = PATHS[path]
     t0 = time.monotonic()
-    serve.main(SERVE_ARGV)
+    serve.main(spec["argv"], paged=spec["paged"])
     torch.cuda.synchronize()
-    log(f"warm-up serve run (same trace) took {time.monotonic() - t0:.2f}s")
-    pda.paged_decode_attention.launches = 0
-    ppa.paged_prefill_attention.launches = 0
-    engine = serve.main(SERVE_ARGV)
+    log(f"{path}: warm-up serve run (same trace) took "
+        f"{time.monotonic() - t0:.2f}s")
+    for fn in K.values():
+        fn.launches = 0
+    engine = serve.main(spec["argv"], paged=spec["paged"])
     torch.cuda.synchronize()
-    launches = {"paged_decode_attention": pda.paged_decode_attention.launches,
-                "paged_prefill_attention":
-                    ppa.paged_prefill_attention.launches}
+    launches = {name: fn.launches for name, fn in K.items()}
     st = engine.stats
     layers = engine.cfg.num_layers
-    if engine.cfg.d_model != 2048 or layers != 22:
-        fail(f"served {engine.cfg.name} is not full-width tinyllama-1.1b")
+    if engine.cfg.d_model != spec["d_model"] or layers != spec["layers"]:
+        fail(f"{path}: served {engine.cfg.name} is not at full width")
+    if engine.paged != (spec["cache"] == "paged"):
+        fail(f"{path}: the engine did not serve on the {spec['cache']} "
+             "cache")
     if len(engine.done) != 8 or any(len(r.tokens_out) != 16
                                     for r in engine.done):
-        fail(f"{len(engine.done)}/8 requests finished with 16 tokens")
+        fail(f"{path}: {len(engine.done)}/8 requests finished with 16 "
+             "tokens")
     for name, n in launches.items():
-        if n <= 0:
-            fail(f"{name} was launched {n} times on the serving path")
-    if launches["paged_decode_attention"] != layers * st.decode_syncs:
-        fail(f"decode kernel launches {launches['paged_decode_attention']} "
-             f"!= {layers} x {st.decode_syncs} decode dispatches")
-    if launches["paged_prefill_attention"] != layers * st.prefill_dispatches:
-        fail(f"prefill kernel launches {launches['paged_prefill_attention']}"
-             f" != {layers} x {st.prefill_dispatches} prefill dispatches")
+        stat = spec["kernels"].get(name)
+        want = 0 if stat is None else layers * getattr(st, stat)
+        if stat is not None and n <= 0:
+            fail(f"{path}: {name} was launched {n} times on the serving "
+                 "path")
+        if n != want:
+            fail(f"{path}: {name} launches {n} != {want}"
+                 + (f" = {layers} x {getattr(st, stat)} {stat}"
+                    if stat else ""))
     ttft = sorted(r.ttft for r in engine.done)
     tpot = sorted(r.tpot for r in engine.done)
-    log(f"served 8/8 on {engine.cfg.name}: TTFT median "
+    log(f"{path}: served 8/8 on {engine.cfg.name}: TTFT median "
         f"{ttft[len(ttft) // 2]:.4f}s max {ttft[-1]:.4f}s | TPOT median "
         f"{tpot[len(tpot) // 2]:.5f}s max {tpot[-1]:.5f}s | launches "
-        f"{launches}")
-    log(f"EngineStats {json.dumps(dataclasses.asdict(st))}")
-    return engine, launches
+        f"{ {k: launches[k] for k in spec['kernels']} }")
+    log(f"{path}: EngineStats {json.dumps(dataclasses.asdict(st))}")
+    return engine, {k: launches[k] for k in spec["kernels"]}
 
 
-def profile_phase(torch, engine):
-    """Where one full-width dispatch spends its time: host wall time per
-    decode step and per 16-token prefill chunk (4 rows, 40-63 cached
-    tokens), the device time the profiler sees in the same calls, and the
-    kernels that take most of it."""
+def profile_dispatches(torch, what, calls):
+    """Host wall time per dispatch, the device time the profiler sees in
+    the same calls, and the kernels that take most of it."""
     from torch.profiler import ProfilerActivity, profile
-    model, params = engine.model, engine.params
-    dev = torch.device("cuda")
-    cache = model.init_paged_cache(1 + 4 * NB, PAGE, B, NB * PAGE)
-    bt = torch.arange(1, 1 + B * NB, dtype=torch.int32,
-                      device=dev).reshape(B, NB)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    vocab = engine.cfg.vocab_size
-    ln = torch.tensor([40, 50, 60, 63], dtype=torch.int32, device=dev)
-    act = torch.ones((B,), dtype=torch.bool, device=dev)
-    tok1 = torch.randint(0, vocab, (B, 1), generator=gen, device=dev,
-                         dtype=torch.int32)
-    tokc = torch.randint(0, vocab, (B, C), generator=gen, device=dev,
-                         dtype=torch.int32)
-    calls = {
-        "decode step": lambda: model.decode_step_paged(
-            params, cache, tok1, ln, bt, act),
-        "prefill chunk": lambda: model.prefill_chunk_paged(
-            params, cache, tokc, ln, bt, act, None),
-    }
-    for what, fn in calls.items():
+    for name, fn in calls.items():
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -348,76 +512,160 @@ def profile_phase(torch, engine):
                 rows.append((t / n / 1e3, e.count // n, e.key))
         rows.sort(reverse=True)
         dev_ms = sum(r[0] for r in rows)
-        log(f"profile {what} (full width, B={B}): host wall {wall_ms:.3f} "
-            f"ms/dispatch, device busy {dev_ms:.3f} ms "
-            f"({100 * dev_ms / wall_ms:.1f}% of wall)")
+        log(f"profile {what} {name} (full width, B={B}): host wall "
+            f"{wall_ms:.3f} ms/dispatch, device busy {dev_ms:.3f} ms "
+            f"({100 * dev_ms / wall_ms:.1f}% of wall), "
+            f"{sum(r[1] for r in rows)} kernels")
         for t, cnt, key in rows[:8]:
             log(f"  {t:.4f} ms  x{cnt}  {key[:90]}")
+
+
+def dispatch_inputs(torch, vocab, dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ln = torch.tensor([40, 50, 60, 63], dtype=torch.int32, device=dev)
+    act = torch.ones((B,), dtype=torch.bool, device=dev)
+    tok1 = torch.randint(0, vocab, (B, 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    tokc = torch.randint(0, vocab, (B, C), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return ln, act, tok1, tokc
+
+
+def profile_phase(torch, paged_engine, mamba_engine):
+    """Where one full-width dispatch spends its time: a decode step and a
+    16-token prefill chunk (4 rows, 40-63 cached tokens) on the paged
+    tinyllama path and on mamba2."""
+    dev = torch.device("cuda")
+    model, params = paged_engine.model, paged_engine.params
+    cache = model.init_paged_cache(1 + 4 * NB, PAGE, B, S)
+    bt = torch.arange(1, 1 + B * NB, dtype=torch.int32,
+                      device=dev).reshape(B, NB)
+    ln, act, tok1, tokc = dispatch_inputs(torch, paged_engine.cfg.vocab_size,
+                                          dev)
+    profile_dispatches(torch, "paged tinyllama-1.1b", {
+        "decode step": lambda: model.decode_step_paged(
+            params, cache, tok1, ln, bt, act),
+        "prefill chunk": lambda: model.prefill_chunk_paged(
+            params, cache, tokc, ln, bt, act, None),
+    })
+    model, params = mamba_engine.model, mamba_engine.params
+    cache = model.init_cache(B, S)
+    ln, act, tok1, tokc = dispatch_inputs(torch, mamba_engine.cfg.vocab_size,
+                                          dev)
+    profile_dispatches(torch, "mamba2-1.3b", {
+        "decode step": lambda: model.decode_step(params, cache, tok1, ln,
+                                                 act),
+        "prefill chunk": lambda: model.prefill_chunk(params, cache, tokc, ln,
+                                                     act, None),
+    })
 
 
 CARD_VS_CPU_ATOL = {"float32": 1e-3, "bfloat16": 2e-2}
 
 
-def card_vs_cpu_phase(torch, engine, device: str = "cuda"):
+def card_vs_cpu(torch, what, run, card_params):
     """One prefill chunk and one decode step at full width, on the card and
-    on the CPU path, from the same weights, with the pool in float32 and in
-    the serving dtype bfloat16. With a float32 pool both sides compute in
-    float32 and differ only in summation order. A bfloat16 pool rounds
+    on the CPU path, from the same weights, with the cache in float32 and
+    in the serving dtype bfloat16. With float32 caches both sides compute
+    in float32 and differ only in summation order. A bfloat16 cache rounds
     each cached value once; a value within float32 noise of a rounding tie
-    lands on the other side on one device, and 22 layers carry that
+    lands on the other side on one device, and the layers carry that
     1-ulp (0.4%) step to the logits — its size is printed beside the size
     of the whole bfloat16-vs-float32 storage effect on the CPU."""
-    from repro_torch.models import transformer
-    cfg = engine.cfg
-    gen = torch.Generator().manual_seed(7)
-    b, pages = 4, 8
-    tokens = torch.randint(0, cfg.vocab_size, (b, C), generator=gen,
-                           dtype=torch.int32)
-    bt = torch.zeros((b, NB), dtype=torch.int32)
-    bt[:, :2] = torch.arange(1, 2 * b + 1, dtype=torch.int32).reshape(b, 2)
-    start = torch.zeros((b,), dtype=torch.int32)
-    valid = torch.tensor([C, C, 9, C], dtype=torch.int32)
-    act_pf = torch.ones((b,), dtype=torch.bool)
-    lengths = valid.clone()
-    act_dec = torch.tensor([True, True, True, False])
-    nxt = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
-                        dtype=torch.int32)
-
-    def run(params, dev, pool_dtype):
-        cache = transformer.init_paged_cache(cfg, pages + 1, PAGE, dev,
-                                             pool_dtype)
-        on = (lambda t: t.to(dev))
-        pf, _ = transformer.prefill_chunk_paged(
-            params, cache, on(tokens), on(start), on(bt), cfg, on(act_pf),
-            on(valid))
-        dec, _ = transformer.decode_step_paged(
-            params, cache, on(nxt), on(lengths), on(bt), cfg, on(act_dec))
-        # compare real tokens only: prefill pads and the inactive decode
-        # row compute garbage that the engine discards
-        keep = [pf[i, :valid[i]] for i in range(b)]
-        keep += [dec[i:i + 1] for i in range(b) if act_dec[i]]
-        return torch.cat(keep).float().cpu()
-
     t0 = time.monotonic()
-    cpu_params = _tree(engine.params, lambda t: t.cpu())
+    cpu_params = _tree(card_params, lambda t: t.cpu())
     cpu = {}
     for name in ("float32", "bfloat16"):
-        pool_dtype = getattr(torch, name)
-        card = run(engine.params, torch.device(device), pool_dtype)
-        cpu[name] = run(cpu_params, torch.device("cpu"), pool_dtype)
+        cache_dtype = getattr(torch, name)
+        card = run(card_params, torch.device("cuda"), cache_dtype)
+        cpu[name] = run(cpu_params, torch.device("cpu"), cache_dtype)
         if not torch.isfinite(card).all():
-            fail(f"card logits are not finite ({name} pool)")
+            fail(f"{what}: card logits are not finite ({name} cache)")
         err = (card - cpu[name]).abs().max().item()
         if err > CARD_VS_CPU_ATOL[name]:
-            fail(f"card vs CPU logits differ by {err:.3e} > "
-                 f"{CARD_VS_CPU_ATOL[name]} ({name} pool)")
-        log(f"card vs CPU, full width, prefill chunk + decode step, {name} "
-            f"pool: max abs logit err {err:.3e} (tol "
+            fail(f"{what}: card vs CPU logits differ by {err:.3e} > "
+                 f"{CARD_VS_CPU_ATOL[name]} ({name} cache)")
+        log(f"card vs CPU, {what}, prefill chunk + decode step, {name} "
+            f"cache: max abs logit err {err:.3e} (tol "
             f"{CARD_VS_CPU_ATOL[name]}; |logits| <= "
             f"{cpu[name].abs().max().item():.3f})")
     effect = (cpu["bfloat16"] - cpu["float32"]).abs().max().item()
-    log(f"bfloat16-vs-float32 pool on the CPU alone moves logits by up to "
-        f"{effect:.3e}; checks took {time.monotonic() - t0:.1f}s")
+    log(f"{what}: bfloat16-vs-float32 cache on the CPU alone moves logits "
+        f"by up to {effect:.3e}; checks took {time.monotonic() - t0:.1f}s")
+
+
+def step_inputs(torch, vocab):
+    """A 16-token prefill chunk of 4 rows (row 2 tail-padded to 9 real
+    tokens) from an empty cache, then a decode step with row 3 idle."""
+    gen = torch.Generator().manual_seed(7)
+    tokens = torch.randint(0, vocab, (B, C), generator=gen,
+                           dtype=torch.int32)
+    valid = torch.tensor([C, C, 9, C], dtype=torch.int32)
+    nxt = torch.randint(0, vocab, (B, 1), generator=gen, dtype=torch.int32)
+    act_dec = torch.tensor([True, True, True, False])
+    return tokens, valid, nxt, act_dec
+
+
+def real_logits(torch, pf, dec, valid, act_dec):
+    """Real tokens only: prefill pads and the inactive decode row compute
+    garbage that the engine discards."""
+    keep = [pf[i, :valid[i]] for i in range(B)]
+    keep += [dec[i:i + 1] for i in range(B) if act_dec[i]]
+    return torch.cat(keep).float().cpu()
+
+
+def card_vs_cpu_phase(torch, paged_engine, contiguous_engine, mamba_engine):
+    from repro_torch.models import mamba_lm, transformer
+    zeros = torch.zeros((B,), dtype=torch.int32)
+    act_pf = torch.ones((B,), dtype=torch.bool)
+
+    cfg = paged_engine.cfg
+    tokens, valid, nxt, act_dec = step_inputs(torch, cfg.vocab_size)
+    bt = torch.zeros((B, NB), dtype=torch.int32)
+    bt[:, :2] = torch.arange(1, 2 * B + 1, dtype=torch.int32).reshape(B, 2)
+
+    def paged(params, dev, cache_dtype):
+        cache = transformer.init_paged_cache(cfg, 2 * B + 1, PAGE, dev,
+                                             cache_dtype)
+        on = (lambda t: t.to(dev))
+        pf, _ = transformer.prefill_chunk_paged(
+            params, cache, on(tokens), on(zeros), on(bt), cfg, on(act_pf),
+            on(valid))
+        dec, _ = transformer.decode_step_paged(
+            params, cache, on(nxt), on(valid), on(bt), cfg, on(act_dec))
+        return real_logits(torch, pf, dec, valid, act_dec)
+
+    def contiguous(params, dev, cache_dtype):
+        cache = transformer.init_cache(cfg, B, 4 * C, dev, cache_dtype)
+        on = (lambda t: t.to(dev))
+        pf, _ = transformer.prefill_chunk(params, cache, on(tokens),
+                                          on(zeros), cfg, on(act_pf),
+                                          on(valid))
+        dec, _ = transformer.decode_step(params, cache, on(nxt), on(valid),
+                                         cfg, on(act_dec))
+        return real_logits(torch, pf, dec, valid, act_dec)
+
+    card_vs_cpu(torch, "paged tinyllama-1.1b", paged, paged_engine.params)
+    card_vs_cpu(torch, "contiguous tinyllama-1.1b", contiguous,
+                contiguous_engine.params)
+
+    # mamba2 at full width, cut to its first 8 layers on both sides
+    mcfg = dataclasses.replace(mamba_engine.cfg, num_layers=8)
+    mtok, mvalid, mnxt, mact = step_inputs(torch, mcfg.vocab_size)
+    mparams = dict(mamba_engine.params)
+    mparams["layers"] = _tree(mamba_engine.params["layers"],
+                              lambda t: t[:mcfg.num_layers])
+
+    def mamba(params, dev, cache_dtype):
+        cache = mamba_lm.init_cache(mcfg, B, dev, cache_dtype)
+        on = (lambda t: t.to(dev))
+        pf, _ = mamba_lm.prefill_chunk(params, cache, on(mtok), on(zeros),
+                                       mcfg, on(act_pf), on(mvalid))
+        dec, _ = mamba_lm.decode_step(params, cache, on(mnxt), on(mvalid),
+                                      mcfg, on(mact))
+        return real_logits(torch, pf, dec, mvalid, mact)
+
+    card_vs_cpu(torch, "mamba2-1.3b (8 of 48 layers)", mamba, mparams)
 
 
 def _tree(node, fn):
@@ -433,7 +681,32 @@ KERNELS = {
     "paged_prefill_attention": dict(
         source="src/repro_torch/kernels/csrc/paged_prefill_attention.cu",
         replaces="src/repro/kernels/paged_prefill_attention.py:80"),
+    "decode_attention": dict(
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:93"),
+    "prefill_attention": dict(
+        source="src/repro_torch/kernels/csrc/prefill_attention.cu",
+        replaces="src/repro/kernels/prefill_attention.py:106"),
+    "ssd_chunk_scan": dict(
+        source="src/repro_torch/kernels/csrc/ssd_chunk_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:55"),
 }
+
+
+def wrappers():
+    """Each kernel's wrapper (it carries the kernel's launch count)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    from repro_torch.kernels.paged_prefill_attention import \
+        paged_prefill_attention
+    from repro_torch.kernels.prefill_attention import prefill_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+    return {"paged_decode_attention": paged_decode_attention,
+            "paged_prefill_attention": paged_prefill_attention,
+            "decode_attention": decode_attention,
+            "prefill_attention": prefill_attention,
+            "ssd_chunk_scan": ssd_chunk_scan}
 
 
 def main() -> None:
@@ -444,16 +717,21 @@ def main() -> None:
 
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build, ref
-    from repro_torch.kernels import paged_decode_attention as pda
-    from repro_torch.kernels import paged_prefill_attention as ppa
     from repro_torch.launch import serve
 
+    t_start = time.monotonic()
     resolve_device("cuda")            # TF32 off for every float32 matmul
     build_phase(build)
-    measured = kernel_phase(torch, F, pda, ppa, ref)
-    engine, launches = serve_phase(torch, serve, pda, ppa)
-    profile_phase(torch, engine)
-    card_vs_cpu_phase(torch, engine)
+    K = wrappers()
+    measured = kernel_phase(torch, F, K, ref)
+    engines, launches = {}, {}
+    for path in PATHS:
+        engines[path], counts = serve_phase(torch, serve, K, path)
+        launches.update(counts)
+    profile_phase(torch, engines["paged tinyllama-1.1b"],
+                  engines["mamba2-1.3b"])
+    card_vs_cpu_phase(torch, *engines.values())
+    log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
 
     rows = [dict(name=name, route="cuda", **KERNELS[name],
                  launches=launches[name], **measured[name])

@@ -1,16 +1,18 @@
-"""Registry of the dense architectures the port serves.
+"""Registry of the architectures the port serves.
 
 The JAX registry (``repro.configs.registry``) holds all ten assigned
-architectures; the port registers the dense family, the only one its
-serving path runs so far (the other families are ROADMAP work).
+architectures; the port registers those of the families its serving path
+runs so far — the dense transformers and mamba2 (ssm). The other families
+are ROADMAP work.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (qwen3_14b, stablelm_3b, stablelm_12b,
-                                 tinyllama_1_1b)
+from repro_torch.configs import (mamba2_1_3b, qwen3_14b, stablelm_3b,
+                                 stablelm_12b, tinyllama_1_1b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = (
+    mamba2_1_3b,
     tinyllama_1_1b,
     stablelm_12b,
     qwen3_14b,

@@ -1,0 +1,121 @@
+"""Argument checks and launch helpers shared by the kernel wrappers."""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.models.layers import rope_freqs
+
+Q_DTYPES = (torch.float32, torch.bfloat16)
+CACHE_DTYPES = (torch.bfloat16, torch.float32)
+#: per-lane accumulator registers in csrc/attention.cuh
+MAX_HEAD_DIM = 256
+#: dynamic shared memory a Hopper CTA may use
+MAX_SMEM_BYTES = 232_448
+
+
+def _check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, lens: torch.Tensor, *, heads: int,
+                     kv: int, d: int) -> None:
+    """What both cache layouts share: device, dtypes, head counts, head
+    dim, q's unit stride along d."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: q must lie on the CPU or a CUDA device, "
+                         f"got {q.device}")
+    for t in (k, v, lens):
+        if t.device != q.device:
+            raise ValueError(f"{name}: operands on {t.device} and {q.device}")
+    if q.dtype not in Q_DTYPES:
+        raise TypeError(f"{name}: q must be float32 or bfloat16, got {q.dtype}")
+    if k.dtype not in CACHE_DTYPES or v.dtype != k.dtype:
+        raise TypeError(f"{name}: caches must both be bfloat16 or float32, "
+                        f"got {k.dtype}/{v.dtype}")
+    if lens.dtype != torch.int32 or not lens.is_contiguous():
+        raise TypeError(f"{name}: lengths must be contiguous int32")
+    if q.shape[-1] != d or d % 2 or d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {q.shape[-1]} vs cache {d}; it "
+                         f"must be even and at most {MAX_HEAD_DIM}")
+    if heads % kv or heads // kv > 32:
+        raise ValueError(f"{name}: {heads} query heads over {kv} KV heads "
+                         "(need H % KV == 0 and H / KV <= 32)")
+    if q.stride(-1) != 1:
+        raise ValueError(f"{name}: q needs unit stride along the head dim")
+
+
+def check_paged_operands(name: str, q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, block_tables: torch.Tensor,
+                         lens: torch.Tensor, *, heads: int,
+                         batch: int) -> None:
+    """Raise on anything the paged kernels do not take: device, dtype,
+    shape, contiguity. ``heads``/``batch`` are q's H and B."""
+    if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"{name}: pools must be (P, page, KV, d) of one "
+                         f"shape, got {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)}")
+    _, page, kv, d = k_pages.shape
+    _check_attention(name, q, k_pages, v_pages, lens, heads=heads, kv=kv,
+                     d=d)
+    if block_tables.device != q.device or block_tables.dtype != torch.int32:
+        raise TypeError(f"{name}: block_tables must be int32 on {q.device}")
+    if (block_tables.dim() != 2 or block_tables.shape[0] != batch
+            or lens.shape != (batch,)):
+        raise ValueError(f"{name}: block_tables {tuple(block_tables.shape)} "
+                         f"/ lengths {tuple(lens.shape)} vs batch {batch}")
+    if not all(t.is_contiguous() for t in (k_pages, v_pages, block_tables)):
+        raise ValueError(f"{name}: pools and block_tables must be "
+                         "contiguous")
+    if page < 1:
+        raise ValueError(f"{name}: empty pages")
+
+
+def check_cache_operands(name: str, q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, lens: torch.Tensor, *, heads: int,
+                         batch: int) -> None:
+    """Raise on anything the contiguous-cache kernels do not take. k/v are
+    (B, KV, S, d) views with any strides but one per axis shared by both
+    and unit stride along d — the model's (B, S, KV, d) cache seen
+    head-major, read in place."""
+    if k.dim() != 4 or v.shape != k.shape or k.shape[0] != batch:
+        raise ValueError(f"{name}: caches must be (B, KV, S, d) of one "
+                         f"shape with B = {batch}, got {tuple(k.shape)}/"
+                         f"{tuple(v.shape)}")
+    _, kv, s, d = k.shape
+    _check_attention(name, q, k, v, lens, heads=heads, kv=kv, d=d)
+    if lens.shape != (batch,):
+        raise ValueError(f"{name}: lengths {tuple(lens.shape)} vs batch "
+                         f"{batch}")
+    if k.stride() != v.stride() or k.stride(-1) != 1:
+        raise ValueError(f"{name}: k and v need the same strides and unit "
+                         f"stride along d, got {k.stride()}/{v.stride()}")
+    if s < 1:
+        raise ValueError(f"{name}: empty cache")
+
+
+def check_smem(name: str, nwarps: int, tile: int, d: int) -> None:
+    """The CTA stages one K and one V tile plus a row per warp in shared
+    memory (csrc/attention.cuh ``smem_floats``)."""
+    need = 4 * (2 * tile * (d + 1) + nwarps * (d + tile))
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: tile {tile} x head dim {d} needs {need} "
+                         f"bytes of shared memory; a CTA has "
+                         f"{MAX_SMEM_BYTES}")
+
+
+@functools.lru_cache(maxsize=16)
+def rope_table(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The d/2 RoPE inverse frequencies the kernels rotate with — the same
+    float32 values the plain versions compute (``layers.rope_freqs``)."""
+    return rope_freqs(d, theta, device).contiguous()
+
+
+def launch(lib_name: str, entry: str, argtypes: list, args: list) -> None:
+    """Call a C entry of ``csrc/<lib_name>.cu`` and raise on its CUDA
+    error code."""
+    lib = build.load(lib_name)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:              # ctypes caches fn on the library
+        fn.argtypes = argtypes
+        fn.restype = build.ctypes.c_int
+    build.check(lib, fn(*args), f"{lib_name}.{entry}")

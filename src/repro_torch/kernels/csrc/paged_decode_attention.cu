@@ -19,11 +19,12 @@
 // Layouts: q (B, H, d) with row strides (sqb, sqh) in elements and unit
 // stride along d; pools (P, page, KV, d) contiguous; block_tables (B, nb)
 // int32; lengths (B,) int32; out (B, H, d) contiguous in q's dtype.
-#include "paged_attention.cuh"
+#include "attention.cuh"
 
 namespace {
 
-using repro_paged::attend_paged;
+using repro_attn::attend;
+using repro_attn::PagedAddr;
 
 template <typename TQ, typename TKV>
 __global__ void paged_decode_kernel(const TQ* __restrict__ q, long long sqb,
@@ -40,32 +41,38 @@ __global__ void paged_decode_kernel(const TQ* __restrict__ q, long long sqb,
   const int G = H / KV;
   const int h = kvh * G + (threadIdx.x >> 5);
   const int qpos = lengths[b] - 1;
-  attend_paged<TQ, TKV>(q + b * sqb + h * sqh,
-                        out + (static_cast<size_t>(b) * H + h) * D, true,
-                        qpos, qpos, k_pages, v_pages,
-                        block_tables + static_cast<size_t>(b) * nb, nb, page,
-                        KV, kvh, D, inv_freq, scale);
+  const PagedAddr addr{block_tables + static_cast<size_t>(b) * nb, nb, page,
+                       static_cast<long long>(KV) * D,
+                       static_cast<long long>(kvh) * D};
+  attend<TQ, TKV>(q + b * sqb + h * sqh,
+                  out + (static_cast<size_t>(b) * H + h) * D, true, qpos,
+                  qpos, k_pages, v_pages, addr, D, inv_freq, scale);
 }
 
-template <typename TQ, typename TKV>
-void launch(const void* q, long long sqb, long long sqh, const void* k_pages,
-            const void* v_pages, const void* block_tables, const void* lengths,
-            const void* inv_freq, void* out, int B, int H, int KV, int D,
-            int page, int nb, float scale, cudaStream_t stream) {
-  const int G = H / KV;
-  const dim3 grid(B, KV);
-  const dim3 block(32 * G);
-  const size_t smem = repro_paged::smem_floats(G, page, D) * sizeof(float);
-  auto kernel = paged_decode_kernel<TQ, TKV>;
-  repro_paged::allow_smem(kernel, smem);
-  kernel<<<grid, block, smem, stream>>>(
-      static_cast<const TQ*>(q), sqb, sqh, static_cast<const TKV*>(k_pages),
-      static_cast<const TKV*>(v_pages),
-      static_cast<const int32_t*>(block_tables),
-      static_cast<const int32_t*>(lengths),
-      static_cast<const float*>(inv_freq), static_cast<TQ*>(out), H, KV, D,
-      page, nb, scale);
-}
+struct Launcher {
+  const void *q;
+  long long sqb, sqh;
+  const void *k_pages, *v_pages, *block_tables, *lengths, *inv_freq;
+  void* out;
+  int B, H, KV, D, page, nb;
+  float scale;
+  cudaStream_t stream;
+
+  template <typename TQ, typename TKV>
+  void run() const {
+    const int G = H / KV;
+    const size_t smem = repro_attn::smem_floats(G, page, D) * sizeof(float);
+    auto kernel = paged_decode_kernel<TQ, TKV>;
+    repro_attn::allow_smem(kernel, smem);
+    kernel<<<dim3(B, KV), dim3(32 * G), smem, stream>>>(
+        static_cast<const TQ*>(q), sqb, sqh, static_cast<const TKV*>(k_pages),
+        static_cast<const TKV*>(v_pages),
+        static_cast<const int32_t*>(block_tables),
+        static_cast<const int32_t*>(lengths),
+        static_cast<const float*>(inv_freq), static_cast<TQ*>(out), H, KV, D,
+        page, nb, scale);
+  }
+};
 
 }  // namespace
 
@@ -76,22 +83,10 @@ extern "C" int paged_decode_attention(
     const void* v_pages, const void* block_tables, const void* lengths,
     const void* inv_freq, void* out, int B, int H, int KV, int D, int page,
     int nb, int q_bf16, int kv_bf16, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16 && kv_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(q, sqb, sqh, k_pages, v_pages,
-                                         block_tables, lengths, inv_freq, out,
-                                         B, H, KV, D, page, nb, scale, s);
-  else if (q_bf16)
-    launch<__nv_bfloat16, float>(q, sqb, sqh, k_pages, v_pages, block_tables,
-                                 lengths, inv_freq, out, B, H, KV, D, page,
-                                 nb, scale, s);
-  else if (kv_bf16)
-    launch<float, __nv_bfloat16>(q, sqb, sqh, k_pages, v_pages, block_tables,
-                                 lengths, inv_freq, out, B, H, KV, D, page,
-                                 nb, scale, s);
-  else
-    launch<float, float>(q, sqb, sqh, k_pages, v_pages, block_tables,
-                         lengths, inv_freq, out, B, H, KV, D, page, nb, scale,
-                         s);
+  repro_attn::dispatch_dtypes(
+      q_bf16, kv_bf16,
+      Launcher{q, sqb, sqh, k_pages, v_pages, block_tables, lengths,
+               inv_freq, out, B, H, KV, D, page, nb, scale,
+               static_cast<cudaStream_t>(stream)});
   return static_cast<int>(cudaGetLastError());
 }

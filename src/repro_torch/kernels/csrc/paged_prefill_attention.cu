@@ -22,11 +22,12 @@
 // Layouts: q (B, H, C, d) with strides (sqb, sqh, sqc) in elements and unit
 // stride along d; pools (P, page, KV, d) contiguous; block_tables (B, nb)
 // int32; start_len (B,) int32; out (B, H, C, d) contiguous in q's dtype.
-#include "paged_attention.cuh"
+#include "attention.cuh"
 
 namespace {
 
-using repro_paged::attend_paged;
+using repro_attn::attend;
+using repro_attn::PagedAddr;
 
 constexpr int kRowsPerCta = 8;
 
@@ -49,35 +50,41 @@ __global__ void paged_prefill_kernel(
   const bool has_row = r < rows;
   const int c = has_row ? r / G : 0;
   const int h = kvh * G + (has_row ? r % G : 0);
-  attend_paged<TQ, TKV>(
-      q + b * sqb + h * sqh + c * sqc,
-      out + ((static_cast<size_t>(b) * H + h) * C + c) * D, has_row,
-      start + c, start + last / G, k_pages, v_pages,
-      block_tables + static_cast<size_t>(b) * nb, nb, page, KV, kvh, D,
-      inv_freq, scale);
+  const PagedAddr addr{block_tables + static_cast<size_t>(b) * nb, nb, page,
+                       static_cast<long long>(KV) * D,
+                       static_cast<long long>(kvh) * D};
+  attend<TQ, TKV>(q + b * sqb + h * sqh + c * sqc,
+                  out + ((static_cast<size_t>(b) * H + h) * C + c) * D,
+                  has_row, start + c, start + last / G, k_pages, v_pages,
+                  addr, D, inv_freq, scale);
 }
 
-template <typename TQ, typename TKV>
-void launch(const void* q, long long sqb, long long sqh, long long sqc,
-            const void* k_pages, const void* v_pages,
-            const void* block_tables, const void* start_len,
-            const void* inv_freq, void* out, int B, int H, int KV, int C,
-            int D, int page, int nb, float scale, cudaStream_t stream) {
-  const int G = H / KV;
-  const dim3 grid(B, KV, (C * G + kRowsPerCta - 1) / kRowsPerCta);
-  const dim3 block(32 * kRowsPerCta);
-  const size_t smem =
-      repro_paged::smem_floats(kRowsPerCta, page, D) * sizeof(float);
-  auto kernel = paged_prefill_kernel<TQ, TKV>;
-  repro_paged::allow_smem(kernel, smem);
-  kernel<<<grid, block, smem, stream>>>(
-      static_cast<const TQ*>(q), sqb, sqh, sqc,
-      static_cast<const TKV*>(k_pages), static_cast<const TKV*>(v_pages),
-      static_cast<const int32_t*>(block_tables),
-      static_cast<const int32_t*>(start_len),
-      static_cast<const float*>(inv_freq), static_cast<TQ*>(out), H, KV, C, D,
-      page, nb, scale);
-}
+struct Launcher {
+  const void *q;
+  long long sqb, sqh, sqc;
+  const void *k_pages, *v_pages, *block_tables, *start_len, *inv_freq;
+  void* out;
+  int B, H, KV, C, D, page, nb;
+  float scale;
+  cudaStream_t stream;
+
+  template <typename TQ, typename TKV>
+  void run() const {
+    const int G = H / KV;
+    const dim3 grid(B, KV, (C * G + kRowsPerCta - 1) / kRowsPerCta);
+    const size_t smem =
+        repro_attn::smem_floats(kRowsPerCta, page, D) * sizeof(float);
+    auto kernel = paged_prefill_kernel<TQ, TKV>;
+    repro_attn::allow_smem(kernel, smem);
+    kernel<<<grid, dim3(32 * kRowsPerCta), smem, stream>>>(
+        static_cast<const TQ*>(q), sqb, sqh, sqc,
+        static_cast<const TKV*>(k_pages), static_cast<const TKV*>(v_pages),
+        static_cast<const int32_t*>(block_tables),
+        static_cast<const int32_t*>(start_len),
+        static_cast<const float*>(inv_freq), static_cast<TQ*>(out), H, KV, C,
+        D, page, nb, scale);
+  }
+};
 
 }  // namespace
 
@@ -89,23 +96,10 @@ extern "C" int paged_prefill_attention(
     const void* start_len, const void* inv_freq, void* out, int B, int H,
     int KV, int C, int D, int page, int nb, int q_bf16, int kv_bf16,
     float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16 && kv_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(q, sqb, sqh, sqc, k_pages, v_pages,
-                                         block_tables, start_len, inv_freq,
-                                         out, B, H, KV, C, D, page, nb, scale,
-                                         s);
-  else if (q_bf16)
-    launch<__nv_bfloat16, float>(q, sqb, sqh, sqc, k_pages, v_pages,
-                                 block_tables, start_len, inv_freq, out, B, H,
-                                 KV, C, D, page, nb, scale, s);
-  else if (kv_bf16)
-    launch<float, __nv_bfloat16>(q, sqb, sqh, sqc, k_pages, v_pages,
-                                 block_tables, start_len, inv_freq, out, B, H,
-                                 KV, C, D, page, nb, scale, s);
-  else
-    launch<float, float>(q, sqb, sqh, sqc, k_pages, v_pages, block_tables,
-                         start_len, inv_freq, out, B, H, KV, C, D, page, nb,
-                         scale, s);
+  repro_attn::dispatch_dtypes(
+      q_bf16, kv_bf16,
+      Launcher{q, sqb, sqh, sqc, k_pages, v_pages, block_tables, start_len,
+               inv_freq, out, B, H, KV, C, D, page, nb, scale,
+               static_cast<cudaStream_t>(stream)});
   return static_cast<int>(cudaGetLastError());
 }

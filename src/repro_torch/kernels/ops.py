@@ -1,13 +1,16 @@
-"""Dispatch from the model's layout to the paged attention kernels.
+"""Dispatch from the model's layout to the kernels.
 
-Counterpart of :mod:`repro.kernels.ops` for the paged serving path.
-Dispatch is by the device of ``q`` alone — there is no backend switch:
+Counterpart of :mod:`repro.kernels.ops` for the serving path. Dispatch is
+by the device of the first operand alone — there is no backend switch:
 
-  cuda — the hand-written Hopper kernels, which read the pool in place
-         (``paged_decode_attention`` / ``paged_prefill_attention``);
-  cpu  — the plain path that mirrors the JAX package's jnp lowering: gather
-         the pages through the block table, then the functions of
-         :mod:`repro_torch.models.attention`.
+  cuda — the hand-written Hopper kernels, which read the paged pool and
+         the contiguous cache in place (``paged_decode_attention``,
+         ``paged_prefill_attention``, ``decode_attention``,
+         ``prefill_attention``) and compute the SSD chunk
+         (``ssd_chunk_scan``);
+  cpu  — the plain path that mirrors the JAX package's jnp lowering: the
+         functions of :mod:`repro_torch.models.attention` (after a gather
+         through the block table, for the paged pool) and the SSD oracle.
 
 Model-facing layouts are (B, S, H, d); the kernels are head-major — the
 wrappers here transpose at the boundary (views, not copies).
@@ -16,10 +19,62 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill_attention import \
     paged_prefill_attention
+from repro_torch.kernels.prefill_attention import prefill_attention
+from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 from repro_torch.models import attention
+
+
+def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor,
+                     rope_theta: float | None = None) -> torch.Tensor:
+    """q: (B, 1, H, d); caches: (B, S, KV, d); lengths (B,) int32 ->
+    (B, 1, H, d).
+
+    Row b attends its first ``lengths[b]`` positions; RoPE of q at position
+    ``lengths - 1`` is fused into the attention. The kernel reads the
+    cache through a head-major view of it, in place."""
+    if q.device.type == "cpu":
+        return attention.decode_attention(q, k_cache, v_cache, lengths,
+                                          rope_theta=rope_theta)
+    o = decode_attention(q[:, 0], k_cache.transpose(1, 2),
+                         v_cache.transpose(1, 2), lengths,
+                         rope_theta=rope_theta)
+    return o[:, None]
+
+
+def attention_prefill_chunk(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, start_len: torch.Tensor,
+                            rope_theta: float | None = None) -> torch.Tensor:
+    """q: (B, C, H, d) UN-rotated; caches: (B, S, KV, d) with the chunk's
+    keys/values already written at ``start_len .. start_len+C-1``;
+    start_len: (B,) int32 -> (B, C, H, d).
+
+    Chunk token j attends positions ``<= start_len + j`` and is rotated
+    there (fused RoPE). The CPU path returns float32, like the JAX jnp
+    lowering; the kernel returns q's dtype."""
+    if q.device.type == "cpu":
+        positions = start_len[:, None] + torch.arange(q.shape[1],
+                                                      device=q.device)
+        return attention.prefill_chunk_attention(q, k_cache, v_cache,
+                                                 positions,
+                                                 rope_theta=rope_theta)
+    o = prefill_attention(q.transpose(1, 2), k_cache.transpose(1, 2),
+                          v_cache.transpose(1, 2), start_len,
+                          rope_theta=rope_theta)
+    return o.transpose(1, 2)
+
+
+def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                    b_: torch.Tensor, c_: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (M, Q, H, P); dt/cum: (M, Q, H); b_/c_: (M, Q, N) -> (y (M, Q,
+    H, P), state (M, H, P, N)). The kernel on CUDA; the oracle
+    ``ref.ssd_chunk_ref`` on the CPU (the JAX jnp backend's choice)."""
+    return ssd_chunk_scan(x, dt, cum, b_, c_)
 
 
 def attention_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,

@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import paged_common, ref
+from repro_torch.kernels import common, ref
 
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3
              + [ctypes.c_void_p] * 6
@@ -48,16 +48,16 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"{name}: q must be (B, H, C, d), got "
                          f"{tuple(q.shape)}")
     b, h, c, d = q.shape
-    paged_common.check_operands(name, q, k_pages, v_pages, block_tables,
+    common.check_paged_operands(name, q, k_pages, v_pages, block_tables,
                                 start_len, heads=h, batch=b)
     _, page, kv, _ = k_pages.shape
-    paged_common.check_smem(name, ROWS_PER_CTA, page, d)
+    common.check_smem(name, ROWS_PER_CTA, page, d)
     out = torch.empty((b, h, c, d), dtype=q.dtype, device=q.device)
-    inv = (paged_common.rope_table(d, float(rope_theta), q.device)
+    inv = (common.rope_table(d, float(rope_theta), q.device)
            if rope_theta is not None else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        paged_common.launch(name, name, _ARGTYPES, [
+        common.launch(name, name, _ARGTYPES, [
             q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
             start_len.data_ptr(), None if inv is None else inv.data_ptr(),

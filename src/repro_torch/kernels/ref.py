@@ -120,3 +120,29 @@ def paged_prefill_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return prefill_attention_ref(q, _gather_head_major(k_pages, block_tables),
                                  _gather_head_major(v_pages, block_tables),
                                  start_len, rope_theta=rope_theta)
+
+
+def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                  b_: torch.Tensor, c_: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD + end-of-chunk state, for one chunk or a batch of
+    them (any leading dims, ``...`` below; the kernel's M).
+
+    x: (..., Q, H, P); dt: (..., Q, H); cum: (..., Q, H) cumulative dt*A
+    within the chunk; b_/c_: (..., Q, N) (ngroups=1). Returns
+    (y_intra (..., Q, H, P) in x's dtype, state (..., H, P, N) float32).
+    exp(cum_i - cum_j) may overflow above the diagonal; ``where`` (not a
+    product) masks it, as in the JAX oracle.
+    """
+    q = x.shape[-3]
+    xf = x.float()
+    seg = cum[..., :, None, :] - cum[..., None, :, :]          # (..., Q, Q, H)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    decay = torch.where(tri[:, :, None], torch.exp(seg),
+                        torch.zeros((), device=x.device))
+    cb = torch.einsum("...qn,...kn->...qk", c_.float(), b_.float())
+    scores = cb[..., None] * decay * dt[..., None, :, :]       # (..., Q, Q, H)
+    y = torch.einsum("...qkh,...khp->...qhp", scores, xf)
+    wgt = torch.exp(cum[..., -1:, :] - cum) * dt               # (..., Q, H)
+    state = torch.einsum("...qn,...qh,...qhp->...hpn", b_.float(), wgt, xf)
+    return y.to(x.dtype), state

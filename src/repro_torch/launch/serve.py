@@ -1,10 +1,13 @@
-"""Serving launcher: run the paged continuous-batching engine on a trace.
+"""Serving launcher: run the continuous-batching engine on a trace.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --requests 8 --policy chunked            # on the GPU (default)
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
 
 Same CLI as ``repro.launch.serve`` plus ``--device`` and ``--page-size``.
+Each family serves on its own cache: the dense family on the paged KV
+pool, mamba2 on its slot-resident recurrent state (``cache_pages()``).
 Weights are random, drawn from ``--seed``.
 """
 from __future__ import annotations
@@ -23,9 +26,11 @@ from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.request import chat_trace
 
 
-def main(argv=None) -> InferenceEngine:
+def main(argv=None, *, paged: "bool | None" = None) -> InferenceEngine:
     """Serve ``--requests`` chat requests to completion; returns the
-    engine (its ``done`` requests and ``stats``)."""
+    engine (its ``done`` requests and ``stats``). ``paged``: the engine's
+    cache (None: the family's own; False: the dense family's contiguous
+    cache) — a keyword for callers, not a flag of the CLI."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
@@ -51,7 +56,7 @@ def main(argv=None) -> InferenceEngine:
     engine = InferenceEngine(model, max_slots=args.slots,
                              max_seq=args.max_seq, policy=args.policy,
                              prefill_chunk=args.prefill_chunk,
-                             page_size=args.page_size)
+                             paged=paged, page_size=args.page_size)
     engine.load_params(params)
     for req in chat_trace(args.requests, cfg.vocab_size,
                           mean_prompt=24, max_new=args.max_new,
@@ -65,6 +70,7 @@ def main(argv=None) -> InferenceEngine:
     ttfts = [r.ttft for r in done if r.ttft is not None]
     tpots = [r.tpot for r in done if r.tpot is not None]
     print(f"[serve] device={model.device} arch={cfg.name} "
+          f"cache={'paged' if engine.paged else 'contiguous'} "
           f"policy={args.policy} done={len(done)} "
           f"decode_tokens={engine.stats.decode_tokens} "
           f"prefill_tokens={engine.stats.prefill_tokens}")

@@ -1,15 +1,25 @@
-"""Decoder-only transformer LM, dense family: the paged serving subset.
+"""Decoder-only transformer LM, dense family: the serving subset.
 
-Counterpart of :mod:`repro.models.transformer`. Parameters are a nested
+Counterpart of :mod:`repro.models.transformer`: the contiguous-cache
+(``init_cache``, ``decode_step``, ``prefill_chunk``) and paged-pool
+(``init_paged_cache``, ``decode_step_paged``, ``prefill_chunk_paged``)
+serving steps; the int8-KV hint is not ported. Parameters are a nested
 dict with the same leaf names and shapes as the JAX package — the einsum
 layouts ``wq (d, h, hd)``, ``wk``/``wv (d, kv, hd)``, ``wo (h, hd, d)`` —
 with every per-layer leaf stacked on a leading layer axis, so one set of
 weights drives both packages (:mod:`repro_torch.models.convert`). The
 JAX ``lax.scan`` over layers is a Python loop over per-layer views.
 
-The page pools are updated IN PLACE: where the JAX functions return a
-rebuilt cache, these write the new keys/values into the caller's pool
-tensors and return the same dict.
+Caches are updated IN PLACE: where the JAX functions return a rebuilt
+cache, these write the new keys/values into the caller's tensors and
+return the same dict. JAX drops the writes of inactive rows and pad
+tokens by pointing them past the cache end under ``mode="drop"``; an
+out-of-range ``index_put_`` would fault, and filtering them out
+(``nonzero``) would make the host wait for the card on every dispatch. So
+both caches carry one spare slot at the index JAX points them at — a drop
+page past the pool's end, a drop position past each row's ``max_seq`` —
+and the dropped writes land there, at fixed shapes and with no host sync.
+Attention never reads it.
 """
 from __future__ import annotations
 
@@ -62,6 +72,17 @@ def layer_view(stacked: dict, i: int) -> dict:
             for k, v in stacked.items()}
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device: torch.device, dtype=torch.bfloat16) -> dict:
+    """Contiguous KV cache, ``(L, B, max_seq + 1, KV, hd)``: each row's
+    slot of ``max_seq`` positions plus one, the drop position
+    (:func:`cache_write_index`), which attention never reads."""
+    shape = (cfg.num_layers, batch, max_seq + 1, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device: torch.device, dtype=torch.bfloat16) -> dict:
     """Page-pool KV cache: ``num_pages`` shared pages of ``page_size``
@@ -92,21 +113,31 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
+def cache_write_index(positions: torch.Tensor, keep: torch.Tensor,
+                      max_seq: int):
+    """Where the new tokens' K/V land in the contiguous cache.
+
+    positions: (B, C) absolute positions; keep: (B, C) bool — which writes
+    count. Returns ``(rows, positions)``, each (B*C,), one per token.
+    Dropped writes — and positions at or past ``max_seq``, which JAX's
+    ``mode="drop"`` discards too — go to position ``max_seq``, the row's
+    drop position (:func:`init_cache`)."""
+    pos = torch.where(keep & (positions < max_seq), positions,
+                      torch.full_like(positions, max_seq))
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    return rows.expand_as(pos).reshape(-1), pos.reshape(-1).long()
+
+
 def paged_write_index(positions: torch.Tensor, block_tables: torch.Tensor,
                       page: int, keep: torch.Tensor, drop_page: int):
     """Where the new tokens' K/V land in the pool.
 
     positions: (B, C) absolute positions; keep: (B, C) bool — which writes
     count. Returns ``(page_ids, offsets)``, each (B*C,), one per token.
-    The JAX package drops inactive rows and pad tokens by pointing their
-    page id past the pool end under ``mode="drop"``; an out-of-range
-    ``index_put_`` would fault, and filtering them out (``nonzero``) would
-    make the host wait for the card on every dispatch. So the port sends
-    them to ``drop_page``, the spare last page of the pool
-    (:func:`init_paged_cache`) — the id JAX points them at, made real.
-    No block table names it, so what lands there is never read. Every
-    dispatch then writes all B*C tokens, at fixed shapes and with no host
-    sync. The block index is clamped to ``nb - 1`` as in JAX.
+    Dropped writes go to ``drop_page``, the spare last page of the pool
+    (:func:`init_paged_cache`) — the id JAX points them at, made real. No
+    block table names it, so what lands there is never read. The block
+    index is clamped to ``nb - 1`` as in JAX.
     """
     nb = block_tables.shape[1]
     block = torch.clamp(positions // page, max=nb - 1)
@@ -115,9 +146,62 @@ def paged_write_index(positions: torch.Tensor, block_tables: torch.Tensor,
     return pidx.reshape(-1), (positions % page).reshape(-1).long()
 
 
-def _write_pages(pages: torch.Tensor, new: torch.Tensor, index) -> None:
-    pidx, off = index
-    pages[pidx, off] = new.reshape(-1, *new.shape[2:]).to(pages.dtype)
+def _write(cache: torch.Tensor, new: torch.Tensor, index) -> None:
+    """Scatter the (B, C, KV, hd) new keys or values to ``index`` (from
+    :func:`cache_write_index` or :func:`paged_write_index`)."""
+    cache[index] = new.reshape(-1, *new.shape[2:]).to(cache.dtype)
+
+
+def attention_decode_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                           k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           lengths: torch.Tensor, write_index):
+    """One-token attention against the contiguous cache.
+
+    x: (B,1,D); caches: (B, max_seq + 1, KV, hd) — written in place. The
+    new k/v lands at position ``lengths``; attention reads the first
+    ``max_seq`` positions over ``lengths + 1`` (``ops.attention_decode``,
+    q rotated there). ``write_index``: this dispatch's
+    :func:`cache_write_index`, the same for every layer; it holds the JAX
+    ``active`` mask (inactive rows write only their drop position, and
+    their outputs are garbage the caller ignores)."""
+    q, k, v = _project_qkv(p, x, cfg, lengths[:, None], rope_q=False)
+    _write(k_cache, k, write_index)
+    _write(v_cache, v, write_index)
+    s = k_cache.shape[1] - 1
+    o = ops.attention_decode(q, k_cache[:, :s], v_cache[:, :s], lengths + 1,
+                             rope_theta=cfg.rope_theta)
+    return torch.einsum("bshe,hed->bsd", o, p["wo"])
+
+
+def _chunk_attend(p: dict, q: torch.Tensor, k_full: torch.Tensor,
+                  v_full: torch.Tensor, start_len: torch.Tensor,
+                  cfg: ModelConfig, x_dtype) -> torch.Tensor:
+    """Chunk-vs-cache causal attention: q (B,C,H,hd) UN-rotated (RoPE is
+    fused into the attention), k_full/v_full (B,S,KV,hd); chunk token j
+    sits at ``start_len + j``."""
+    o = ops.attention_prefill_chunk(q, k_full, v_full, start_len,
+                                    rope_theta=cfg.rope_theta)
+    return torch.einsum("bshe,hed->bsd", o.to(x_dtype), p["wo"])
+
+
+def attention_prefill_chunk_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                                  k_cache: torch.Tensor,
+                                  v_cache: torch.Tensor,
+                                  start_len: torch.Tensor, write_index):
+    """Chunked-prefill attention against the contiguous cache: the C new
+    tokens' k/v are written at ``start_len .. start_len+C-1`` and attended
+    causally over the first ``max_seq`` positions. ``write_index`` (this
+    dispatch's :func:`cache_write_index`) holds the JAX ``active`` and
+    ``valid`` masks: inactive rows and tail pads write only their drop
+    position, and their outputs are garbage."""
+    c = x.shape[1]
+    positions = start_len[:, None] + torch.arange(c, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, positions, rope_q=False)
+    _write(k_cache, k, write_index)
+    _write(v_cache, v, write_index)
+    s = k_cache.shape[1] - 1
+    return _chunk_attend(p, q, k_cache[:, :s], v_cache[:, :s], start_len, cfg,
+                         x.dtype)
 
 
 def attention_decode_block_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -138,8 +222,8 @@ def attention_decode_block_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """
     positions = lengths[:, None]
     q, k, v = _project_qkv(p, x, cfg, positions, rope_q=False)
-    _write_pages(k_pages, k, write_index)
-    _write_pages(v_pages, v, write_index)
+    _write(k_pages, k, write_index)
+    _write(v_pages, v, write_index)
     o = ops.attention_decode_paged(q, k_pages, v_pages, block_tables,
                                    lengths + 1, rope_theta=cfg.rope_theta)
     return torch.einsum("bshe,hed->bsd", o, p["wo"])
@@ -161,8 +245,8 @@ def attention_prefill_chunk_block_paged(p: dict, x: torch.Tensor,
     c = x.shape[1]
     positions = start_len[:, None] + torch.arange(c, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions, rope_q=False)
-    _write_pages(k_pages, k, write_index)
-    _write_pages(v_pages, v, write_index)
+    _write(k_pages, k, write_index)
+    _write(v_pages, v, write_index)
     o = ops.attention_prefill_chunk_paged(q, k_pages, v_pages, block_tables,
                                           start_len,
                                           rope_theta=cfg.rope_theta)
@@ -170,8 +254,8 @@ def attention_prefill_chunk_block_paged(p: dict, x: torch.Tensor,
 
 
 def _write_mask(b: int, c: int, device, active, valid) -> torch.Tensor:
-    """(B, C) bool: which of the dispatch's new tokens reach their own
-    page (the others go to the drop page)."""
+    """(B, C) bool: which of the dispatch's new tokens reach the cache
+    (the others go to the drop page or drop position)."""
     keep = torch.ones((b, c), dtype=torch.bool, device=device)
     if active is not None:
         keep = keep & active[:, None]
@@ -181,14 +265,72 @@ def _write_mask(b: int, c: int, device, active, valid) -> torch.Tensor:
     return keep
 
 
-def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def lm_logits(params: dict, x: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """Final norm, then the (tied or separate) LM head."""
     x = layers.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     if cfg.tie_embeddings:
         return layers.unembed(x, params["embedding"], transpose=True)
     return layers.unembed(x, params["lm_head"], transpose=False)
 
 
+def _run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                attend) -> torch.Tensor:
+    """Every pre-norm block, then the logits. ``attend(i, p_attn, h)`` is
+    layer i's attention on its normed input ``h`` (it writes the layer's
+    cache)."""
+    for i in range(cfg.num_layers):
+        lp = layer_view(params["layers"], i)
+        h = layers.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        x = x + attend(i, lp["attn"], h)
+        h2 = layers.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        x = x + layers.mlp(lp["ffn"], h2)
+    return lm_logits(params, x, cfg)
+
+
 # ---------------------------------------------------------------- forward
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                lengths: torch.Tensor, cfg: ModelConfig,
+                active: torch.Tensor | None = None):
+    """One decode step against the contiguous cache. tokens: (B,1);
+    lengths: (B,) int32. Returns (logits (B, V), cache) with the new K/V
+    written into ``cache`` (from :func:`init_cache`) in place; inactive
+    rows leave every position but their drop position untouched."""
+    x = layers.embed(params["embedding"], tokens)
+    index = cache_write_index(lengths[:, None],
+                              _write_mask(tokens.shape[0], 1, x.device,
+                                          active, None),
+                              cache["k"].shape[2] - 1)
+    logits = _run_layers(params, x, cfg, lambda i, p, h:
+                         attention_decode_block(p, h, cfg, cache["k"][i],
+                                                cache["v"][i], lengths,
+                                                index))
+    return logits[:, 0], cache
+
+
+def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
+                  start_len: torch.Tensor, cfg: ModelConfig,
+                  active: torch.Tensor | None = None,
+                  valid: torch.Tensor | None = None):
+    """Batched chunked prefill against the contiguous cache: advance every
+    row by C tokens in one pass. tokens: (B, C); start_len: (B,) int32
+    tokens already cached per row. Returns (logits (B, C, V), cache) with
+    the chunk's K/V written into ``cache`` (from :func:`init_cache`) in
+    place. Rows with ``active=False`` and tail pads beyond ``valid`` write
+    only their drop position."""
+    x = layers.embed(params["embedding"], tokens)
+    b, c = tokens.shape
+    positions = start_len[:, None] + torch.arange(c, device=x.device)[None, :]
+    index = cache_write_index(positions,
+                              _write_mask(b, c, x.device, active, valid),
+                              cache["k"].shape[2] - 1)
+    logits = _run_layers(params, x, cfg, lambda i, p, h:
+                         attention_prefill_chunk_block(
+                             p, h, cfg, cache["k"][i], cache["v"][i],
+                             start_len, index))
+    return logits, cache
+
 
 def decode_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
                       lengths: torch.Tensor, block_tables: torch.Tensor,
@@ -203,16 +345,12 @@ def decode_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
     index = paged_write_index(lengths[:, None], block_tables, page,
                               _write_mask(tokens.shape[0], 1, x.device,
                                           active, None), pages - 1)
-    for i in range(cfg.num_layers):
-        lp = layer_view(params["layers"], i)
-        h = layers.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        attn_out = attention_decode_block_paged(
-            lp["attn"], h, cfg, cache["k_pages"][i], cache["v_pages"][i],
-            block_tables, lengths, index)
-        x = x + attn_out
-        h2 = layers.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + layers.mlp(lp["ffn"], h2)
-    return _logits(params, x, cfg)[:, 0], cache
+    logits = _run_layers(params, x, cfg, lambda i, p, h:
+                         attention_decode_block_paged(
+                             p, h, cfg, cache["k_pages"][i],
+                             cache["v_pages"][i], block_tables, lengths,
+                             index))
+    return logits[:, 0], cache
 
 
 def prefill_chunk_paged(params: dict, cache: dict, tokens: torch.Tensor,
@@ -232,13 +370,9 @@ def prefill_chunk_paged(params: dict, cache: dict, tokens: torch.Tensor,
     index = paged_write_index(positions, block_tables, page,
                               _write_mask(b, c, x.device, active, valid),
                               pages - 1)
-    for i in range(cfg.num_layers):
-        lp = layer_view(params["layers"], i)
-        h = layers.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        attn_out = attention_prefill_chunk_block_paged(
-            lp["attn"], h, cfg, cache["k_pages"][i], cache["v_pages"][i],
-            block_tables, start_len, index)
-        x = x + attn_out
-        h2 = layers.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + layers.mlp(lp["ffn"], h2)
-    return _logits(params, x, cfg), cache
+    logits = _run_layers(params, x, cfg, lambda i, p, h:
+                         attention_prefill_chunk_block_paged(
+                             p, h, cfg, cache["k_pages"][i],
+                             cache["v_pages"][i], block_tables, start_len,
+                             index))
+    return logits, cache

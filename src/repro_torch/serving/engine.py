@@ -1,7 +1,9 @@
-"""Continuous-batching inference engine on the paged KV cache (PyTorch).
+"""Continuous-batching inference engine (PyTorch).
 
-Port of :mod:`repro.serving.engine` for its default, paged path: the same
-slot scheduling through the pluggable
+Port of :mod:`repro.serving.engine` on both of its caches — the paged KV
+pool (the dense family's default) and the contiguous slot-resident cache
+(``paged=False``, and the ssm family's recurrent state): the same slot
+scheduling through the pluggable
 :class:`~repro_torch.bench.policy.SchedulingPolicy` objects (``fcfs``,
 ``chunked``, ``mixed`` step budgets with multi-slot batched prefill,
 ``slo_aware``, ...), the same page-gated admission, LRU
@@ -17,19 +19,18 @@ What differs:
     pools IN PLACE (``self.cache`` keeps the same tensors);
   * the engine runs on the model's device; on CUDA every layer's attention
     goes through the hand-written paged kernels (``repro_torch.kernels``);
-  * ``page_size`` and ``prefill_chunk`` must be given — the JAX engine's
-    TPU autotuner (``repro.kernels.autotune``) is not ported;
-  * ``paged=False`` raises ``NotImplementedError``: the contiguous cache
-    needs the contiguous decode/prefill kernels of a later slice;
+  * ``prefill_chunk``, and ``page_size`` on the paged cache, must be
+    given — the JAX engine's TPU autotuner (``repro.kernels.autotune``) is
+    not ported;
   * the clock is the wall clock. The JAX engine's virtual cost clock,
     eviction watermarks and fault hooks (crash replay, page stealing,
     aborts, router probes) serve its scenario runner and resilience
     layer, which are not ported yet (ROADMAP.md).
 
-Hot path, as in the JAX engine: one ``prefill_chunk_paged`` dispatch per
-chunk (``stats.prefill_dispatches``), one full-batch ``decode_step_paged``
+Hot path, as in the JAX engine: one ``prefill_chunk[_paged]`` dispatch per
+chunk (``stats.prefill_dispatches``), one full-batch ``decode_step[_paged]``
 per step with an ``active`` mask that keeps idle and mid-prefill rows'
-pages untouched, and per-slot lengths mirrored on the host in numpy. Host
+cache untouched, and per-slot lengths mirrored on the host in numpy. Host
 arrays reach the card through pinned, non-blocking copies, so the decode
 loop's one host sync is the argmax fetch (``stats.decode_syncs``).
 """
@@ -93,51 +94,73 @@ class InferenceEngine:
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.policy = get_policy(policy)
-        if prefill_chunk is None or page_size is None:
+        if paged is None:
+            paged = model.cache_pages()
+        elif paged and not model.cache_pages():
+            raise ValueError(
+                f"family {self.cfg.family!r} cannot page its cache "
+                "(no growing KV)")
+        if prefill_chunk is None or (paged and page_size is None):
             # the JAX engine asks its TPU autotuner (repro.kernels.autotune)
             # for these; the port has no tuner yet (ROADMAP.md)
-            raise ValueError("prefill_chunk and page_size must be given: the "
-                             "autotuner that picks them is not ported")
+            raise ValueError("prefill_chunk (and page_size, on the paged "
+                             "cache) must be given: the autotuner that "
+                             "picks them is not ported")
         self.prefill_chunk = prefill_chunk
         self.device = model.device
         self._t0 = _time.monotonic()
         self.stats = EngineStats()
         self._last_decode_t: Optional[float] = None
 
-        # paged only: the contiguous cache needs the contiguous decode and
-        # prefill kernels, which a later slice of the port brings
-        if paged is None:
-            paged = model.cache_pages()
-        if not paged:
-            raise NotImplementedError(
-                "the contiguous KV cache (paged=False) is not ported yet "
-                "(ROADMAP.md: contiguous engine path)")
+        self.paged = paged
         self.params = None
-        page_size = min(page_size, max_seq)
-        max_blocks = math.ceil(max_seq / page_size)
-        # default pool reproduces the contiguous capacity exactly (one
-        # full block table per slot): no eviction pressure, identical
-        # admission — the drop-in configuration
-        if kv_pages is None:
-            kv_pages = max_slots * max_blocks
-        self.page_size = page_size
-        self.kv_pages = kv_pages
-        self.allocator = BlockAllocator(kv_pages, page_size, max_slots,
-                                        max_blocks)
-        if prefix_cache and not model.prefix_shareable():
-            raise ValueError(
-                f"family {self.cfg.family!r} cannot share prefixes: "
-                "its prefill state is not fully page-resident "
-                "(slot-resident SSM state / cross-KV) or its numerics "
-                "are batch-coupled (MoE capacity)")
-        self.prefix = PrefixCache(self.allocator) if prefix_cache else None
-        self.cache = self.model.init_paged_cache(
-            kv_pages, page_size, max_slots, max_seq)
-        # slot-resident leaves only (SSM state / enc-dec cross-KV);
-        # page leaves pass through set_cache_slice untouched, so the
-        # fresh piece can come from a 1-page dummy pool
-        self._fresh_slot = self.model.slice_cache(
-            self.model.init_paged_cache(1, page_size, 1, max_seq), 0)
+        self.allocator: Optional[BlockAllocator] = None
+        if paged:
+            page_size = min(page_size, max_seq)
+            max_blocks = math.ceil(max_seq / page_size)
+            # default pool reproduces the contiguous capacity exactly (one
+            # full block table per slot): no eviction pressure, identical
+            # admission — the drop-in configuration
+            if kv_pages is None:
+                kv_pages = max_slots * max_blocks
+            self.page_size = page_size
+            self.kv_pages = kv_pages
+            self.allocator = BlockAllocator(kv_pages, page_size, max_slots,
+                                            max_blocks)
+            if prefix_cache and not model.prefix_shareable():
+                raise ValueError(
+                    f"family {self.cfg.family!r} cannot share prefixes: "
+                    "its prefill state is not fully page-resident "
+                    "(slot-resident SSM state / cross-KV) or its numerics "
+                    "are batch-coupled (MoE capacity)")
+            self.prefix = (PrefixCache(self.allocator) if prefix_cache
+                           else None)
+            self.cache = self.model.init_paged_cache(
+                kv_pages, page_size, max_slots, max_seq)
+            # slot-resident leaves only (SSM state / enc-dec cross-KV);
+            # page leaves pass through set_cache_slice untouched, so the
+            # fresh piece can come from a 1-page dummy pool
+            self._fresh_slot = self.model.slice_cache(
+                self.model.init_paged_cache(1, page_size, 1, max_seq), 0)
+        else:
+            if prefix_cache:
+                raise ValueError("prefix sharing needs the paged cache "
+                                 "(pages are the unit of sharing)")
+            self.prefix = None
+            if kv_pages is not None:
+                budget_tokens = kv_pages * (page_size or 16)
+                reserved = max_slots * max_seq
+                if reserved > budget_tokens:
+                    raise ValueError(
+                        f"contiguous KV cache reserves max_slots x max_seq "
+                        f"= {reserved} tokens up front, exceeding the page "
+                        f"budget of {budget_tokens} tokens; construct with "
+                        "paged=True to admit by actual demand")
+            self.page_size = page_size or 16
+            self.kv_pages = kv_pages
+            self.cache = self.model.init_cache(max_slots, max_seq)
+            self._fresh_slot = self.model.slice_cache(
+                self.model.init_cache(1, max_seq), 0)
         # host mirror: no device sync ever needed to READ a slot's length.
         # COPY-ON-WRITE invariant: torch.from_numpy ALIASES this buffer on
         # the CPU (as jnp.asarray may in the JAX engine), so any buffer
@@ -340,13 +363,19 @@ class InferenceEngine:
             tokens[slot] = np.asarray(sub, np.int32)
             mask = np.zeros((self.max_slots,), bool)
             mask[slot] = True
-            self.allocator.touch(slot)
-            self._cow_guard(slot, int(self.lengths[slot]), c)
+            if self.paged:
+                self.allocator.touch(slot)
+                self._cow_guard(slot, int(self.lengths[slot]), c)
             t0 = self.now()
-            _, self.cache = self.model.prefill_chunk_paged(
-                self.params, self.cache, self._dev(tokens),
-                self._dev(self.lengths), self._dev(self.allocator.tables),
-                self._dev(mask), None)
+            if self.paged:
+                _, self.cache = self.model.prefill_chunk_paged(
+                    self.params, self.cache, self._dev(tokens),
+                    self._dev(self.lengths), self._dev(self.allocator.tables),
+                    self._dev(mask), None)
+            else:
+                _, self.cache = self.model.prefill_chunk(
+                    self.params, self.cache, self._dev(tokens),
+                    self._dev(self.lengths), self._dev(mask), None)
             new_lengths = self.lengths.copy()
             new_lengths[slot] += c
             self.lengths = new_lengths
@@ -425,15 +454,21 @@ class InferenceEngine:
             tokens[slot, :c] = np.asarray(piece, np.int32)
             mask[slot] = True
             valid[slot] = c
-            self.allocator.touch(slot)
-            self._cow_guard(slot, int(self.lengths[slot]), c)
+            if self.paged:
+                self.allocator.touch(slot)
+                self._cow_guard(slot, int(self.lengths[slot]), c)
         # uniform widths skip the valid mask entirely, as in the JAX engine
         val = (None if all(c == width for _, c in plan)
                else self._dev(valid))
-        _, self.cache = self.model.prefill_chunk_paged(
-            self.params, self.cache, self._dev(tokens),
-            self._dev(self.lengths), self._dev(self.allocator.tables),
-            self._dev(mask), val)
+        if self.paged:
+            _, self.cache = self.model.prefill_chunk_paged(
+                self.params, self.cache, self._dev(tokens),
+                self._dev(self.lengths), self._dev(self.allocator.tables),
+                self._dev(mask), val)
+        else:
+            _, self.cache = self.model.prefill_chunk(
+                self.params, self.cache, self._dev(tokens),
+                self._dev(self.lengths), self._dev(mask), val)
         self.stats.prefill_dispatches += 1
         new_lengths = self.lengths.copy()
         for slot, c in plan:
@@ -467,34 +502,35 @@ class InferenceEngine:
             if not free:
                 break
             hit, hit_pages = 0, []
-            eff = self._effective_prompt(req)
-            need_tok = len(eff) + 1
-            if not self.allocator.fits(need_tok):
-                raise RuntimeError(
-                    f"request {req.request_id} needs "
-                    f"{self.allocator.pages_needed(need_tok)} pages but "
-                    f"the pool holds {self.allocator.num_pages} "
-                    f"(block table: {self.allocator.max_blocks}); it "
-                    "can never be admitted")
-            # prefix sharing: cached pages cost a reference, not a
-            # page, and cold trie pages count as reclaimable headroom
-            hit, hit_pages = self._prefix_lookup(eff)
-            fresh = self.allocator.pages_needed(need_tok) - len(hit_pages)
-            reclaim = (self.prefix.reclaimable_pages()
-                       if self.prefix is not None else 0)
-            reclaim = max(0, reclaim - len(hit_pages))
-            in_use_eff = self.allocator.pages_in_use - reclaim
-            if fresh > self.allocator.free_pages + reclaim:
-                continue   # memory-aware: smaller requests may still fit
-            if in_use_eff > 0 and (in_use_eff + len(hit_pages) + fresh
-                                   > self.allocator.num_pages):
-                continue
-            if fresh > self.allocator.free_pages:
-                self.prefix.evict_cold(
-                    fresh - self.allocator.free_pages,
-                    protect=frozenset(hit_pages))
-                if fresh > self.allocator.free_pages:
+            if self.paged:
+                eff = self._effective_prompt(req)
+                need_tok = len(eff) + 1
+                if not self.allocator.fits(need_tok):
+                    raise RuntimeError(
+                        f"request {req.request_id} needs "
+                        f"{self.allocator.pages_needed(need_tok)} pages but "
+                        f"the pool holds {self.allocator.num_pages} "
+                        f"(block table: {self.allocator.max_blocks}); it "
+                        "can never be admitted")
+                # prefix sharing: cached pages cost a reference, not a
+                # page, and cold trie pages count as reclaimable headroom
+                hit, hit_pages = self._prefix_lookup(eff)
+                fresh = self.allocator.pages_needed(need_tok) - len(hit_pages)
+                reclaim = (self.prefix.reclaimable_pages()
+                           if self.prefix is not None else 0)
+                reclaim = max(0, reclaim - len(hit_pages))
+                in_use_eff = self.allocator.pages_in_use - reclaim
+                if fresh > self.allocator.free_pages + reclaim:
+                    continue   # memory-aware: smaller requests may still fit
+                if in_use_eff > 0 and (in_use_eff + len(hit_pages) + fresh
+                                       > self.allocator.num_pages):
                     continue
+                if fresh > self.allocator.free_pages:
+                    self.prefix.evict_cold(
+                        fresh - self.allocator.free_pages,
+                        protect=frozenset(hit_pages))
+                    if fresh > self.allocator.free_pages:
+                        continue
             slot = free[0]
             self.active[slot] = req
             self.waiting.remove(req)
@@ -504,9 +540,10 @@ class InferenceEngine:
                                        self.now())
             self._partial[slot] = hit
             self._eff[slot] = self._effective_prompt(req)
-            self.allocator.alloc_slot(slot, need_tok, shared=hit_pages)
-            self._note_pages()
-            self._emit_kv()
+            if self.paged:
+                self.allocator.alloc_slot(slot, need_tok, shared=hit_pages)
+                self._note_pages()
+                self._emit_kv()
             self.cache = self.model.set_cache_slice(self.cache, slot,
                                                     self._fresh_slot)
             new_lengths = self.lengths.copy()
@@ -584,7 +621,7 @@ class InferenceEngine:
         decoding = [i for i, r in enumerate(self.active)
                     if r is not None and
                     self._partial.get(i, 0) >= len(self._eff[i])]
-        if decoding:
+        if self.paged and decoding:
             # page growth before dispatch: the new token writes at position
             # lengths[i]; growing may evict LRU victims (possibly other
             # decoding slots — drop those from this step's batch)
@@ -616,13 +653,18 @@ class InferenceEngine:
                 req = self.active[i]
                 tokens[i, 0] = (req.tokens_out[-1] if req.tokens_out
                                 else int(req.prompt[-1]))
-            for i in decoding:
-                self.allocator.touch(i)
             t_step0 = self.now()
-            logits, self.cache = self.model.decode_step_paged(
-                self.params, self.cache, self._dev(tokens),
-                self._dev(self.lengths), self._dev(self.allocator.tables),
-                self._dev(mask))
+            if self.paged:
+                for i in decoding:
+                    self.allocator.touch(i)
+                logits, self.cache = self.model.decode_step_paged(
+                    self.params, self.cache, self._dev(tokens),
+                    self._dev(self.lengths), self._dev(self.allocator.tables),
+                    self._dev(mask))
+            else:
+                logits, self.cache = self.model.decode_step(
+                    self.params, self.cache, self._dev(tokens),
+                    self._dev(self.lengths), self._dev(mask))
             # the one host sync of the decode loop: fetch the argmaxes. The
             # tokens reach the host only here, so the step's time is read
             # after it
@@ -655,9 +697,10 @@ class InferenceEngine:
                 if len(req.tokens_out) >= req.max_new_tokens or full:
                     req.t_done = t
                     self.done.append(req)
-                    self._publish_prefix(i)
-                    self.allocator.free_slot(i)
-                    self._emit_kv()
+                    if self.paged:
+                        self._publish_prefix(i)
+                        self.allocator.free_slot(i)
+                        self._emit_kv()
                     self.active[i] = None
                     self._partial.pop(i, None)
                     self._eff.pop(i, None)

@@ -1,11 +1,14 @@
-"""The port's paged InferenceEngine against the JAX engine.
+"""The port's InferenceEngine against the JAX engine.
 
 Same weights (JAX initialiser, carried across by ``params_from_jax``),
 same ``chat_trace`` requests, same geometry (``page_size`` and
-``prefill_chunk`` given, so neither engine consults an autotuner). Four
-configurations: plain paged, eviction under a small pool, prefix cache
-with copy-on-write forks, and the ``mixed`` step-budget policy. Token
-streams must be identical, and so must the EngineStats counters.
+``prefill_chunk`` given, so neither engine consults an autotuner). On the
+paged cache, four configurations: plain paged, eviction under a small
+pool, prefix cache with copy-on-write forks, and the ``mixed`` step-budget
+policy. On the contiguous cache, tinyllama with ``paged=False`` and
+reduced mamba2 (whose recurrent state never pages), each under the
+``chunked`` and ``mixed`` policies. Token streams must be identical, and
+so must the EngineStats counters.
 """
 import dataclasses
 
@@ -34,6 +37,20 @@ torch.set_num_threads(2)
 STATS = ("steps", "prefill_tokens", "decode_tokens", "prefill_dispatches",
          "evictions", "recompute_tokens", "prefix_hit_tokens", "cow_forks",
          "pages_in_use")
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    """Reduced mamba2 with 2 layers (tests/test_serving.py's
+    test_engine_ssm_family)."""
+    jcfg = dataclasses.replace(CONFIGS["mamba2-1.3b"].reduced(),
+                               num_layers=2)
+    tcfg = dataclasses.replace(TCONFIGS["mamba2-1.3b"].reduced(),
+                               num_layers=2)
+    jm = jbuild(jcfg)
+    jparams = jm.init(jax.random.key(0))
+    tm = tbuild(tcfg, "cpu")
+    return jm, jparams, tm, params_from_jax(_flatten(jparams), "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -106,13 +123,85 @@ def test_engine_streams_and_stats_match_jax(models, name):
         assert tstats.mixed_steps == jstats.mixed_steps > 0
 
 
-def test_engine_refuses_what_is_not_ported(models):
+CONTIGUOUS = {
+    "chunked": dict(max_slots=4, max_seq=64, policy="chunked",
+                    prefill_chunk=8),
+    "mixed": dict(max_slots=4, max_seq=64, policy="mixed", prefill_chunk=4),
+}
+
+
+@pytest.mark.parametrize("policy", sorted(CONTIGUOUS))
+def test_contiguous_engine_streams_and_stats_match_jax(models, policy):
+    """tinyllama on the contiguous KV cache (``paged=False``)."""
+    jm, jparams, tm, tparams = models
+    kw = CONTIGUOUS[policy]
+    reqs = _chat(jm.cfg)
+    want, jstats = _serve(JEngine, Request, jm, jparams, reqs, paged=False,
+                          **kw)
+    got, tstats = _serve(TEngine, TRequest, tm, tparams, reqs, paged=False,
+                         **kw)
+    assert got == want
+    for field in STATS + ("decode_syncs", "mixed_steps", "budget_enabled"):
+        assert getattr(tstats, field) == getattr(jstats, field), field
+    assert tstats.pages_in_use == 0
+    if policy == "mixed":
+        assert tstats.mixed_steps > 0
+
+
+SSM_CONFIGS = {
+    "chunked": dict(max_slots=2, max_seq=64, policy="chunked",
+                    prefill_chunk=4),
+    "mixed": dict(max_slots=4, max_seq=64, policy="mixed", prefill_chunk=4),
+}
+
+
+@pytest.mark.parametrize("policy", sorted(SSM_CONFIGS))
+def test_ssm_engine_streams_and_stats_match_jax(mamba, policy):
+    """Reduced mamba2: its state is slot-resident, so both engines serve
+    it on the contiguous path by themselves (``cache_pages()`` is False);
+    mixed batching pads rows under ``valid`` (dt = 0 on pads)."""
+    jm, jparams, tm, tparams = mamba
+    kw = SSM_CONFIGS[policy]
+    reqs = chat_trace(5, jm.cfg.vocab_size, mean_prompt=8, max_new=4, seed=3)
+    want, jstats = _serve(JEngine, Request, jm, jparams, reqs, **kw)
+    got, tstats = _serve(TEngine, TRequest, tm, tparams, reqs, **kw)
+    assert got == want
+    for field in STATS + ("decode_syncs", "mixed_steps", "budget_enabled"):
+        assert getattr(tstats, field) == getattr(jstats, field), field
+    if policy == "mixed":
+        assert tstats.mixed_steps > 0
+
+
+def test_engine_refuses_what_is_not_ported(models, mamba):
+    """What stays refused: an engine without the geometry the autotuner
+    would pick, the paged cache for mamba2 (as in JAX), and the families
+    whose serving path is not ported (moe, vlm, hybrid, encdec)."""
     _, _, tm, _ = models
+    _, _, sm, _ = mamba
     with pytest.raises(ValueError, match="must be given"):
         TEngine(tm, max_slots=2, max_seq=32)
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        TEngine(tm, max_slots=2, max_seq=32, paged=False, page_size=4,
+    with pytest.raises(ValueError, match="must be given"):
+        TEngine(tm, max_slots=2, max_seq=32, paged=False)
+    with pytest.raises(ValueError, match="cannot page"):
+        TEngine(sm, max_slots=2, max_seq=32, paged=True, page_size=4,
                 prefill_chunk=4)
+    with pytest.raises(ValueError, match="no KV to page"):
+        sm.init_paged_cache(4, 4, 2, 32)
+    with pytest.raises(ValueError, match="prefix sharing needs"):
+        TEngine(sm, max_slots=2, max_seq=32, prefill_chunk=4,
+                prefix_cache=True)
+    # a page budget the contiguous cache's up-front reservation exceeds
+    with pytest.raises(ValueError, match="exceeding the page budget"):
+        TEngine(tm, max_slots=4, max_seq=64, prefill_chunk=4, paged=False,
+                kv_pages=8, page_size=4)
+    dense = TCONFIGS["tinyllama-1.1b"].reduced()
+    for cfg in (dataclasses.replace(dense, family="moe", num_experts=4,
+                                    num_experts_per_token=2),
+                dataclasses.replace(dense, family="vlm"),
+                dataclasses.replace(sm.cfg, family="hybrid"),
+                dataclasses.replace(dense, family="encdec")):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tbuild(cfg, "cpu")
 
 
 @pytest.mark.parametrize("name", ["eviction", "mixed", "prefix_cache"])
