@@ -23,14 +23,26 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                 every length;
               * the SSD chunk scan at mamba2-1.3b's widths (64 heads of 64,
                 state 128), 4 chunks of Q = 16, 13, 1 and 256;
-              attention in q float32 with caches bfloat16 (the serving
-              dtypes) and float32. Tolerance: 2e-5 absolute + 2e-5
+              * full-sequence flash attention at the training and
+                prefill shapes (B = 4, H = 32, KV = 4, d = 64): S = 2048
+                and 1024 causal in float32 and bfloat16, a ragged S = 1000,
+                and Sq = 256 against Skv = 2048 without the mask; the
+                forward's log-sum-exp; the backward kernel's dq, dk, dv at
+                S = 1024 (float32, bfloat16), and the autograd wrapper's
+                against torch.autograd of the plain forward;
+              * RMSNorm over 4096 and 4095 rows of 2048, float32 and
+                bfloat16;
+              serving attention in q float32 with caches bfloat16 (the
+              serving dtypes) and float32. Tolerance: 2e-5 absolute + 2e-5
               relative (both sides compute in float32 on identical inputs;
-              they differ in summation order). Then times kernel, plain
-              version and, for attention, one scaled_dot_product_attention
-              call on the pre-rotated, head-expanded view (a yardstick
-              only: the port never calls it; no single PyTorch call
-              computes the SSD chunk).
+              they differ in summation order), 2e-2 where the output is
+              bfloat16 (one rounding step). Then times kernel, plain
+              version and one PyTorch call computing the same function (a
+              yardstick only: the port never calls it):
+              scaled_dot_product_attention on the pre-rotated,
+              head-expanded view (forward + backward for the backward
+              kernel), F.rms_norm; no single PyTorch call computes the SSD
+              chunk.
 4. serve    — repro_torch.launch.serve.main at full width, 8 chat requests,
               4 slots, max-seq 256, 16 new tokens, chunk 16, policy
               chunked, random float32 weights from seed 0, on three paths:
@@ -48,8 +60,24 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               layers on both): logits must agree within 1e-3 absolute with
               float32 caches and 2e-2 with the bfloat16 serving caches
               (card_vs_cpu says why).
-5. report   — a JSON line of per-kernel numbers, the nvidia-smi line, and
-              last a JSON line naming the device.
+5. training — at full tinyllama-1.1b width, random float32 weights from
+              seed 0, each path between a zero of every launch count and
+              an exact check of them all:
+              * ops.fused_rmsnorm (the RMSNorm kernel's one entry point)
+                on 4 x 1024 activations, float32 and bfloat16;
+              * make_prefill_step on 4 x 2048 prompt tokens (the flash
+                kernel, once a layer), then 16 greedy decode steps on the
+                cache it returns (the contiguous decode kernel);
+              * repro_torch.launch.train, 8 AdamW steps of 4 x 1024 tokens
+                with remat full (the flash kernel twice a layer a step,
+                the backward kernel once): finite, decreasing losses; step
+                time, tokens/s and peak memory; a profiled step;
+              then, cut to 2 layers, forward logits and loss_fn gradients
+              on the card against the CPU path, and a checkpoint written
+              on the card, restored on the CPU, whose next step agrees.
+6. report   — a JSON line of per-kernel numbers (launches summed over the
+              measured runs of every path), the nvidia-smi line, and last
+              a JSON line naming the device.
 """
 from __future__ import annotations
 
@@ -65,6 +93,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 ATOL = RTOL = 2e-5
+BF16_TOL = 2e-2
 
 # serving-path shapes: tinyllama-1.1b, 4 slots, page 16, max-seq 256
 B, H, KV, D, PAGE, NB, C, POOL = 4, 32, 4, 64, 16, 16, 16, 64
@@ -163,15 +192,18 @@ def make_cache(torch, gen, dev, filled, cache_dtype):
     return k[:, :S].transpose(1, 2), v[:, :S].transpose(1, 2)
 
 
-def check_close(name, got, want):
+def check_close(name, got, want, tol=ATOL):
+    """Max abs error of ``got`` against ``want``; fails beyond ``tol``
+    absolute + ``tol`` relative (2e-5 in float32; bfloat16 outputs get
+    BF16_TOL, one rounding step of a value of order 1)."""
     import torch
     err = (got.float() - want.float()).abs()
     if not torch.isfinite(got.float()).all():
         fail(f"{name}: non-finite kernel output")
-    over = err - RTOL * want.float().abs()
-    if over.max().item() > ATOL:
+    over = err - tol * want.float().abs()
+    if over.max().item() > tol:
         fail(f"{name}: kernel vs plain max abs err {err.max().item():.3e} "
-             f"exceeds {ATOL} + {RTOL}*|plain|")
+             f"exceeds {tol} + {tol}*|plain|")
     return err.max().item()
 
 
@@ -399,6 +431,8 @@ def kernel_phase(torch, F, K, ref):
     paged_kernel_phase(torch, F, K, ref, gen, dev, out)
     contiguous_kernel_phase(torch, F, K, ref, gen, dev, out)
     ssd_kernel_phase(torch, K, ref, gen, dev, out)
+    flash_kernel_phase(torch, F, K, ref, gen, dev, out)
+    rmsnorm_kernel_phase(torch, F, K, ref, gen, dev, out)
     for name, r in out.items():
         lib = ("—" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -406,6 +440,173 @@ def kernel_phase(torch, F, K, ref):
             f" | sdpa yardstick {lib} | bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']})")
     return out
+
+
+# full-sequence attention at the training / prefill shapes: (Sq, Skv,
+# causal, dtype); the first is the row of the kernels line (prefill, S=2048)
+FLASH_CASES = [(2048, 2048, True, "float32"), (2048, 2048, True, "bfloat16"),
+               (1024, 1024, True, "float32"), (1024, 1024, True, "bfloat16"),
+               (1000, 1000, True, "float32"), (256, 2048, False, "float32")]
+FLASH_BWD_S = 1024                  # the training sequence length
+RMS_ROWS, RMS_D = [4096, 4095], 2048
+
+
+def flash_pairs(sq, skv, causal):
+    """Visible (query, key) pairs of one head: kpos <= qpos from 0."""
+    if not causal:
+        return sq * skv
+    return sum(min(i + 1, skv) for i in range(sq))
+
+
+def flash_bound(sq, skv, causal, elt, lse=False):
+    """Bytes: q, k, v read once, o written once (and lse); operations: q·k
+    and p·v, 2·d each, per visible pair and head."""
+    byts = elt * (B * H * sq * D * 2 + 2 * B * KV * skv * D)
+    byts += 4 * B * H * sq if lse else 0
+    return byts, 4 * D * B * H * flash_pairs(sq, skv, causal)
+
+
+def flash_bwd_bound(sq, skv, causal, elt):
+    """Bytes: q, k, v, o, dO and lse read once, dq, dk, dv written once;
+    operations: q·k again, dO·v, Pᵀ dO, dSᵀ q and dS k, 2·d each, per
+    visible pair and head — 2.5× the forward's."""
+    byts = (elt * (B * H * sq * D * 4 + 4 * B * KV * skv * D)
+            + 4 * B * H * sq)
+    return byts, 10 * D * B * H * flash_pairs(sq, skv, causal)
+
+
+def flash_inputs(torch, gen, dev, sq, skv, dtype):
+    """q, k, v in the model's layout (B, S, heads, d), seen head-major as
+    ops.attention_prefill passes them."""
+    def one(n, heads):
+        return (torch.randn((B, n, heads, D), generator=gen, device=dev)
+                .to(dtype).transpose(1, 2))
+    return one(sq, H), one(skv, KV), one(skv, KV)
+
+
+def sdpa_full(torch, F, q, k, v, causal):
+    """SDPA on the head-expanded view: a yardstick the port never calls."""
+    return F.scaled_dot_product_attention(
+        q, k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1),
+        is_causal=causal)
+
+
+def flash_kernel_phase(torch, F, K, ref, gen, dev, out):
+    fwd, bwd = K["flash_attention"], K["flash_attention_bwd"]
+    for sq, skv, causal, dname in FLASH_CASES:
+        dtype = getattr(torch, dname)
+        tol = ATOL if dname == "float32" else BF16_TOL
+        q, k, v = flash_inputs(torch, gen, dev, sq, skv, dtype)
+        o, lse = fwd(q, k, v, causal=causal, return_lse=True)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        want_lse = ref.flash_attention_lse_ref(q, k, causal=causal)
+        torch.cuda.synchronize()
+        what = f"flash_attention[Sq={sq} Skv={skv} causal={causal} {dname}]"
+        err = check_close(what, o, want, tol)
+        lse_err = check_close(what + " lse", lse, want_lse)
+        del want, want_lse
+        line = (f"{what}: max abs err {err:.3e} (tol {tol} + {tol}*|plain|)"
+                f", lse {lse_err:.3e}")
+        if (sq, skv, causal) in ((2048, 2048, True), (1024, 1024, True)):
+            ms = timed_ms(torch, lambda: fwd(q, k, v, causal=causal), 10)
+            plain_ms = timed_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal), 5)
+            lib_ms = timed_ms(torch, lambda: sdpa_full(torch, F, q, k, v,
+                                                       causal), 10)
+            bound = bound_entry(*flash_bound(sq, skv, causal,
+                                             q.element_size()))
+            line += (f" | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+                     f"sdpa {lib_ms:.4f} ms | bound {bound[0]:.4f} ms "
+                     f"({bound[1]})")
+            if (sq, dname) == (2048, "float32"):
+                out["flash_attention"] = row(err, ms, plain_ms, bound, lib_ms)
+        log(line)
+        del q, k, v, o, lse
+        torch.cuda.empty_cache()
+
+    # backward at the training shape, float32 and bfloat16: the kernel
+    # against the plain backward, and the autograd wrapper against
+    # torch.autograd of the plain forward
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        tol = ATOL if dname == "float32" else BF16_TOL
+        s = FLASH_BWD_S
+        q, k, v = flash_inputs(torch, gen, dev, s, s, dtype)
+        o, lse = fwd(q, k, v, causal=True, return_lse=True)
+        do = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
+        got = bwd(q, k, v, o, lse, do, causal=True)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        errs = [check_close(f"flash_attention_bwd {n} [S={s} {dname}]",
+                            g, w, tol)
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+        del got, want
+        line = (f"flash_attention_bwd S={s} causal {dname}: max abs err dq "
+                f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (tol {tol}"
+                f" + {tol}*|plain|)")
+        if dname == "float32":
+            from repro_torch.kernels.flash_attention import FlashAttention
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            grads = torch.autograd.grad(
+                FlashAttention.apply(*leaves, True), leaves, do)
+            rleaves = [t.detach().clone().requires_grad_(True)
+                       for t in (q, k, v)]
+            rgrads = torch.autograd.grad(
+                ref.flash_attention_ref(*rleaves, causal=True), rleaves, do)
+            torch.cuda.synchronize()
+            auto = [check_close(f"FlashAttention autograd {n}", g, w)
+                    for n, g, w in zip(("dq", "dk", "dv"), grads, rgrads)]
+            del grads, rgrads, leaves, rleaves
+            errs += auto
+            line += (f"; autograd wrapper vs torch.autograd of the plain "
+                     f"forward: dq {auto[0]:.3e} dk {auto[1]:.3e} dv "
+                     f"{auto[2]:.3e}")
+            ms = timed_ms(torch, lambda: bwd(q, k, v, o, lse, do,
+                                             causal=True), 10)
+            plain_ms = timed_ms(torch, lambda: ref.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, True), 5)
+            ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v))
+            lib_ms = timed_ms(torch, lambda: torch.autograd.grad(
+                sdpa_full(torch, F, ql, kl, vl, True), (ql, kl, vl), do), 10)
+            bound = bound_entry(*flash_bwd_bound(s, s, True, 4))
+            line += (f" | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+                     f"sdpa fwd+bwd {lib_ms:.4f} ms | bound {bound[0]:.4f} "
+                     f"ms ({bound[1]})")
+            out["flash_attention_bwd"] = row(max(errs), ms, plain_ms, bound,
+                                             lib_ms)
+        log(line)
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+
+
+def rmsnorm_kernel_phase(torch, F, K, ref, gen, dev, out):
+    fn = K["rmsnorm"]
+    w = 1 + 0.1 * torch.randn((RMS_D,), generator=gen, device=dev)
+    for rows in RMS_ROWS:
+        for dname in ("float32", "bfloat16"):
+            x = torch.randn((rows, RMS_D), generator=gen, device=dev).to(
+                getattr(torch, dname))
+            tol = ATOL if dname == "float32" else BF16_TOL
+            got = fn(x, w)
+            torch.cuda.synchronize()
+            err = check_close(f"rmsnorm[R={rows} {dname}]", got,
+                              ref.rmsnorm_ref(x, w), tol)
+            line = (f"rmsnorm R={rows} D={RMS_D} {dname}: max abs err "
+                    f"{err:.3e} (tol {tol} + {tol}*|plain|)")
+            if rows == RMS_ROWS[0] and dname == "float32":
+                ms = timed_ms(torch, lambda: fn(x, w))
+                plain_ms = timed_ms(torch, lambda: ref.rmsnorm_ref(x, w))
+                lib_ms = timed_ms(torch, lambda: F.rms_norm(
+                    x, (RMS_D,), w, 1e-5))
+                bound = bound_entry(2 * rows * RMS_D * 4 + RMS_D * 4,
+                                    3 * rows * RMS_D)
+                line += (f" | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms |"
+                         f" F.rms_norm {lib_ms:.4f} ms | bound "
+                         f"{bound[0]:.6f} ms ({bound[1]})")
+                out["rmsnorm"] = row(err, ms, plain_ms, bound, lib_ms)
+            log(line)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -445,8 +646,7 @@ def serve_phase(torch, serve, K, path):
     torch.cuda.synchronize()
     log(f"{path}: warm-up serve run (same trace) took "
         f"{time.monotonic() - t0:.2f}s")
-    for fn in K.values():
-        fn.launches = 0
+    zero_counts(K)
     engine = serve.main(spec["argv"], paged=spec["paged"])
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in K.items()}
@@ -481,15 +681,15 @@ def serve_phase(torch, serve, K, path):
     return engine, {k: launches[k] for k in spec["kernels"]}
 
 
-def profile_dispatches(torch, what, calls):
+def profile_dispatches(torch, what, calls, n=10):
     """Host wall time per dispatch, the device time the profiler sees in
-    the same calls, and the kernels that take most of it."""
+    the same calls, and the kernels that take most of it (``n`` calls
+    each, after warm-up)."""
     from torch.profiler import ProfilerActivity, profile
     for name, fn in calls.items():
-        for _ in range(3):
+        for _ in range(min(n, 3)):
             fn()
         torch.cuda.synchronize()
-        n = 10
         t0 = time.monotonic()
         for _ in range(n):
             fn()
@@ -673,6 +873,292 @@ def _tree(node, fn):
             for k, v in node.items()}
 
 
+# ------------------------------------------------------------------ phase 5
+def zero_counts(K) -> None:
+    for fn in K.values():
+        fn.launches = 0
+
+
+def check_launches(K, path, want: dict) -> dict:
+    """Each kernel's launches since zero_counts: exactly ``want`` (0 for
+    a kernel not named) and at least one for each named kernel."""
+    got = {name: fn.launches for name, fn in K.items()}
+    for name, n in got.items():
+        if n != want.get(name, 0) or (name in want and n <= 0):
+            fail(f"{path}: {name} launches {n} != {want.get(name, 0)}")
+    log(f"{path}: launches {want} as expected")
+    return {k: got[k] for k in want}
+
+
+def rmsnorm_path_phase(torch, K):
+    """The kernel's one entry point, ops.fused_rmsnorm (no model calls it,
+    in the JAX package or here), on activations of the training shape:
+    4 x 1024 rows of tinyllama's 2048, float32 then bfloat16."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((B, TRAIN_S, 2048), generator=gen, device=dev)
+    w = 1 + 0.1 * torch.randn((2048,), generator=gen, device=dev)
+    zero_counts(K)
+    ys = [ops.fused_rmsnorm(x, w), ops.fused_rmsnorm(x.bfloat16(), w)]
+    torch.cuda.synchronize()
+    counts = check_launches(K, "ops.fused_rmsnorm", {"rmsnorm": 2})
+    for y, tol in zip(ys, (ATOL, BF16_TOL)):
+        check_close("ops.fused_rmsnorm", y, ref.rmsnorm_ref(
+            x.to(y.dtype), w), tol)
+    return counts
+
+
+PREFILL_S, DECODE_STEPS = 2048, 16
+# 8 steps: at full width 4 steps of the CLI's default schedule (lr 1e-3,
+# 10 warm-up steps) do not lower the loss — the batches share almost no
+# tokens (4 x 1024 of 32000), so only the output scale is learnt, and it
+# takes the warm-up a few more steps than batch-to-batch noise (+-0.015)
+TRAIN_S, TRAIN_STEPS = 1024, 8
+TRAIN_ARGV = ["--arch", "tinyllama-1.1b", "--steps", str(TRAIN_STEPS),
+              "--batch", str(B), "--seq", str(TRAIN_S), "--remat", "full",
+              "--device", "cuda", "--seed", "0"]
+#: card vs CPU gradients: per leaf, within this fraction of the leaf's
+#: largest CPU gradient (float32 on both sides, summed in other orders)
+GRAD_TOL = 1e-3
+
+
+def tinyllama(torch, layers=None):
+    """Full-width tinyllama-1.1b on the card with random float32 weights
+    from seed 0, optionally cut to its first ``layers`` layers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.factory import build_model
+    cfg = get_config("tinyllama-1.1b")
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    if layers is None:
+        return model, params
+    cut = build_model(dataclasses.replace(cfg, num_layers=layers), "cuda")
+    params["layers"] = _tree(params["layers"],
+                             lambda t: t[:layers].clone())
+    return cut, params
+
+
+def prefill_phase(torch, K):
+    """make_prefill_step on B x 2048 prompt tokens at full width, then 16
+    greedy decode steps on the cache it returns (the contiguous decode
+    kernel): one warm-up run, then the measured run between zero_counts
+    and the count check."""
+    from repro_torch.training.train_step import (make_prefill_step,
+                                                 make_serve_step)
+    model, params = tinyllama(torch)
+    cfg, dev = model.cfg, torch.device("cuda")
+    prefill_step = make_prefill_step(model, PREFILL_S + DECODE_STEPS)
+    serve_step = make_serve_step(model)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (B, PREFILL_S), generator=gen,
+                           device=dev, dtype=torch.int32)
+
+    def run():
+        t0 = time.monotonic()
+        logits, cache = prefill_step(params, {"tokens": tokens})
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t_prefill = time.monotonic() - t0
+        if not torch.isfinite(logits).all():
+            fail("prefill: non-finite logits")
+        for key in ("k", "v"):
+            if (cache[key].shape[2] != PREFILL_S + DECODE_STEPS + 1
+                    or torch.any(cache[key][:, :, PREFILL_S:] != 0)):
+                fail("prefill: the cache is not the contiguous layout with "
+                     "zeros past the prompt")
+        del logits
+        lengths = torch.full((B,), PREFILL_S, dtype=torch.int32, device=dev)
+        steps = []
+        for i in range(DECODE_STEPS):
+            t0 = time.monotonic()
+            lg, cache = serve_step(params, cache, tok, lengths + i)
+            tok = lg.argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            steps.append(time.monotonic() - t0)
+        if not torch.isfinite(lg).all():
+            fail("decode after prefill: non-finite logits")
+        return t_prefill, steps
+
+    run()
+    zero_counts(K)
+    t_prefill, steps = run()
+    counts = check_launches(K, "prefill + decode", {
+        "flash_attention": cfg.num_layers,
+        "decode_attention": cfg.num_layers * DECODE_STEPS})
+    profile_dispatches(torch, "tinyllama-1.1b", {
+        f"prefill ({B} x {PREFILL_S} tokens)":
+            lambda: prefill_step(params, {"tokens": tokens})}, n=3)
+    steps.sort()
+    log(f"prefill + decode (tinyllama-1.1b, B={B}, {PREFILL_S}-token "
+        f"prompts, float32 weights): prefill {t_prefill:.4f} s "
+        f"({B * PREFILL_S / t_prefill:.0f} prompt tokens/s); decode step "
+        f"median {steps[len(steps) // 2] * 1e3:.2f} ms, max "
+        f"{steps[-1] * 1e3:.2f} ms")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_phase(torch, K):
+    """repro_torch.launch.train at full width: 8 AdamW steps, B x 1024
+    tokens, remat full — the forward kernel runs twice a layer a step
+    (forward, and recompute in the backward), the backward kernel once."""
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(K)
+    run = train.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    layers = 22
+    counts = check_launches(K, "train", {
+        "flash_attention": 2 * layers * TRAIN_STEPS,
+        "flash_attention_bwd": layers * TRAIN_STEPS})
+    if not all(math.isfinite(x) for x in run.losses):
+        fail(f"train: non-finite losses {run.losses}")
+    if not run.losses[-1] < run.losses[0]:
+        fail(f"train: loss did not decrease {run.losses}")
+    warm = sorted(run.step_seconds[1:])
+    step_s = warm[len(warm) // 2]
+    log(f"train (tinyllama-1.1b full width, AdamW float32, B={B} x "
+        f"{TRAIN_S}, remat full): losses {run.losses}; step seconds "
+        f"{[round(x, 4) for x in run.step_seconds]} (first includes "
+        f"warm-up); median of the rest {step_s:.4f} s = "
+        f"{B * TRAIN_S / step_s:.0f} tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del run
+    torch.cuda.empty_cache()
+    # where a step's device time goes: the same step, outside the counted
+    # run
+    from repro_torch.training.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.training.train_step import make_train_step
+    model, params = tinyllama(torch)
+    _, step = make_train_step(
+        model, OptimizerConfig(lr=1e-3, warmup_steps=10), remat="full")
+    state = (params, adamw_init(params))
+    batch = {"tokens": torch.randint(
+        0, model.cfg.vocab_size, (B, TRAIN_S), dtype=torch.int32,
+        generator=torch.Generator().manual_seed(2))}
+    profile_dispatches(torch, "tinyllama-1.1b", {
+        f"train step ({B} x {TRAIN_S}, remat full)":
+            lambda: step(*state, batch)}, n=2)
+    del model, params, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _grad_tree(torch, model, params, batch):
+    """(loss, gradient tree) of model.loss_fn at ``params`` (copied)."""
+    from repro_torch.training.tree import (tree_leaves, tree_map,
+                                           tree_unflatten)
+    tree = tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
+    leaves = tree_leaves(tree)
+    loss = model.loss_fn(tree, batch, remat="full")
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(tree, list(grads))
+
+
+def _leaf_errors(torch, card, cpu, absolute=()):
+    """Per leaf: max |card - cpu| over max |cpu| — or, for leaves whose
+    path starts with one of ``absolute``, the max abs difference itself."""
+    from repro_torch.models.convert import flat_from_tree
+    fc, fh = flat_from_tree(card), flat_from_tree(cpu)
+    out = {}
+    for k, want in fh.items():
+        scale = (1.0 if k.startswith(tuple(absolute))
+                 else max(float(abs(want).max()), 1e-30))
+        out[k] = float(abs(fc[k].astype("float64") - want).max()) / scale
+    return out
+
+
+def training_card_vs_cpu_phase(torch):
+    """tinyllama-1.1b at full width cut to 2 layers: forward logits
+    (S = 256) and loss_fn gradients (batch 1 x 256) on the card against
+    the CPU path from the same weights; then a checkpoint written on the
+    card restores on the CPU and one more AdamW step agrees."""
+    import shutil
+
+    from repro_torch.models import transformer
+    from repro_torch.models.factory import build_model
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.training.train_step import make_train_step
+    t0 = time.monotonic()
+    model, params = tinyllama(torch, layers=2)
+    cfg = model.cfg
+    cpu_model = build_model(cfg, "cpu")
+    cpu_params = _tree(params, lambda t: t.cpu())
+    gen = torch.Generator().manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                           dtype=torch.int32)
+    with torch.no_grad():
+        card = transformer.forward(params, tokens.cuda(), cfg,
+                                   remat="none")[0].cpu()
+        cpu = transformer.forward(cpu_params, tokens, cfg, remat="none")[0]
+    err = (card - cpu).abs().max().item()
+    if not torch.isfinite(card).all() or err > CARD_VS_CPU_ATOL["float32"]:
+        fail(f"forward card vs CPU logits differ by {err:.3e}")
+    log(f"card vs CPU, forward (2 of 22 layers, 2 x 256 tokens): max abs "
+        f"logit err {err:.3e} (tol {CARD_VS_CPU_ATOL['float32']}; |logits|"
+        f" <= {cpu.abs().max().item():.3f})")
+
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 256, 1, seed=0))
+    batch = {k: torch.as_tensor(v) for k, v in data.batch(0).items()}
+    lc, gc_ = _grad_tree(torch, model, params,
+                         {k: v.cuda() for k, v in batch.items()})
+    lh, gh = _grad_tree(torch, cpu_model, cpu_params, batch)
+    errs = _leaf_errors(torch, gc_, gh)
+    worst = max(errs, key=errs.get)
+    if abs(lc.item() - lh.item()) > 1e-4 or errs[worst] > GRAD_TOL:
+        fail(f"loss_fn card vs CPU: loss {lc.item()} vs {lh.item()}, "
+             f"gradient {worst} off by {errs[worst]:.3e} of its max")
+    log(f"card vs CPU, loss_fn gradients (2 layers, 1 x 256): loss "
+        f"{lc.item():.6f} vs {lh.item():.6f}; worst leaf {worst} within "
+        f"{errs[worst]:.3e} of its largest gradient (tol {GRAD_TOL})")
+    del gc_, gh
+
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=10)
+    _, card_step = make_train_step(model, opt_cfg, remat="full")
+    _, cpu_step = make_train_step(cpu_model, opt_cfg, remat="full")
+    state = card_step(params, adamw_init(params), data.batch(0))[:2]
+    ckdir = ROOT / "chip_smoke_ckpt"
+    try:
+        CheckpointManager(str(ckdir), device="cuda").save(1, state)
+        step, restored, _ = CheckpointManager(str(ckdir),
+                                              device="cpu").restore()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    *card_next, mc = card_step(*state, data.batch(1))
+    *cpu_next, mh = cpu_step(*restored, data.batch(1))
+    # the moments within GRAD_TOL of each leaf's largest value; the weights
+    # within twice the step's learning rate: AdamW moves a weight by about
+    # lr whatever its gradient's size, so where a gradient is within
+    # rounding of 0 the two sides may step it either way
+    lr2 = float(mc["lr"])
+    errs = _leaf_errors(torch, tuple(card_next), tuple(cpu_next),
+                        absolute=("__T0/", "__T1/master/"))
+    weights = {k: e for k, e in errs.items()
+               if k.startswith(("__T0/", "__T1/master/"))}
+    moments = {k: e for k, e in errs.items() if k not in weights}
+    w_worst = max(weights, key=weights.get)
+    m_worst = max(moments, key=moments.get)
+    dl = abs(mc["loss"].item() - mh["loss"].item())
+    if (step != 1 or dl > 1e-4 or weights[w_worst] > 2 * lr2
+            or moments[m_worst] > GRAD_TOL):
+        fail(f"checkpoint card -> CPU: next-step loss off by {dl:.3e}, "
+             f"{w_worst} by {weights[w_worst]:.3e} (lr {lr2:.1e}), "
+             f"{m_worst} by {moments[m_worst]:.3e} of its max")
+    log(f"checkpoint saved on the card, restored on the CPU: the next AdamW "
+        f"step's loss agrees within {dl:.3e}; every weight within "
+        f"{weights[w_worst]:.3e} ({w_worst}; tol 2 x lr = {2 * lr2:.1e}), "
+        f"every moment within {moments[m_worst]:.3e} of its largest value "
+        f"({m_worst}; tol {GRAD_TOL}); checks took "
+        f"{time.monotonic() - t0:.1f}s")
+    del model, params, state, card_next
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------- main
 KERNELS = {
     "paged_decode_attention": dict(
@@ -690,23 +1176,45 @@ KERNELS = {
     "ssd_chunk_scan": dict(
         source="src/repro_torch/kernels/csrc/ssd_chunk_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:55"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:73"),
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="none: no TPU counterpart (the JAX package cannot "
+                 "differentiate its Pallas flash kernel and trains on its "
+                 "jnp lowering, src/repro/models/transformer.py:123)"),
+    "rmsnorm": dict(
+        source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm.py:19"),
 }
 
 
 def wrappers():
     """Each kernel's wrapper (it carries the kernel's launch count)."""
     from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention
     from repro_torch.kernels.paged_prefill_attention import \
         paged_prefill_attention
     from repro_torch.kernels.prefill_attention import prefill_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan
     return {"paged_decode_attention": paged_decode_attention,
             "paged_prefill_attention": paged_prefill_attention,
             "decode_attention": decode_attention,
             "prefill_attention": prefill_attention,
-            "ssd_chunk_scan": ssd_chunk_scan}
+            "ssd_chunk_scan": ssd_chunk_scan,
+            "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
+            "rmsnorm": rmsnorm}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
 
 
 def main() -> None:
@@ -727,10 +1235,16 @@ def main() -> None:
     engines, launches = {}, {}
     for path in PATHS:
         engines[path], counts = serve_phase(torch, serve, K, path)
-        launches.update(counts)
+        add_counts(launches, counts)
     profile_phase(torch, engines["paged tinyllama-1.1b"],
                   engines["mamba2-1.3b"])
     card_vs_cpu_phase(torch, *engines.values())
+    del engines
+    torch.cuda.empty_cache()
+    add_counts(launches, rmsnorm_path_phase(torch, K))
+    add_counts(launches, prefill_phase(torch, K))
+    add_counts(launches, train_phase(torch, K))
+    training_card_vs_cpu_phase(torch)
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
 
     rows = [dict(name=name, route="cuda", **KERNELS[name],

@@ -93,6 +93,44 @@ def check_cache_operands(name: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: empty cache")
 
 
+def check_flash_operands(name: str, q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> None:
+    """Raise on anything the flash-attention kernels do not take. q:
+    (B, H, Sq, d), k/v: (B, KV, Skv, d), each with any strides but unit
+    stride along d (head-major views of the model's (B, S, heads, d)
+    tensors); k and v share one dtype."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: q must be (B, H, Sq, d) and k/v one "
+                         f"(B, KV, Skv, d) shape, got {tuple(q.shape)}/"
+                         f"{tuple(k.shape)}/{tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs k/v "
+                         f"{tuple(k.shape)}: batch and head dim must agree")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: q must lie on the CPU or a CUDA device, "
+                         f"got {q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{name}: operands on {k.device}/{v.device} and "
+                         f"{q.device}")
+    if q.dtype not in Q_DTYPES or k.dtype not in Q_DTYPES \
+            or v.dtype != k.dtype:
+        raise TypeError(f"{name}: q and k/v must be float32 or bfloat16, "
+                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    kv = k.shape[1]
+    if d % 2 or d > MAX_HEAD_DIM or kv < 1 or h % kv:
+        raise ValueError(f"{name}: head dim {d} (even, at most "
+                         f"{MAX_HEAD_DIM}) and {h} query heads over {kv} "
+                         "KV heads (H % KV == 0)")
+    if sq < 1 or k.shape[2] < 1:
+        raise ValueError(f"{name}: empty sequence ({sq} queries, "
+                         f"{k.shape[2]} keys)")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride() != k.stride():
+        raise ValueError(f"{name}: unit stride along d, and one stride "
+                         f"pattern for k and v, got {q.stride()}/"
+                         f"{k.stride()}/{v.stride()}")
+
+
 def check_smem(name: str, nwarps: int, tile: int, d: int) -> None:
     """The CTA stages one K and one V tile plus a row per warp in shared
     memory (csrc/attention.cuh ``smem_floats``)."""

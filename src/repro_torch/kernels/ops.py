@@ -1,16 +1,19 @@
 """Dispatch from the model's layout to the kernels.
 
-Counterpart of :mod:`repro.kernels.ops` for the serving path. Dispatch is
-by the device of the first operand alone — there is no backend switch:
+Counterpart of :mod:`repro.kernels.ops`. Dispatch is by the device of the
+first operand alone — there is no backend switch:
 
   cuda — the hand-written Hopper kernels, which read the paged pool and
          the contiguous cache in place (``paged_decode_attention``,
          ``paged_prefill_attention``, ``decode_attention``,
-         ``prefill_attention``) and compute the SSD chunk
-         (``ssd_chunk_scan``);
+         ``prefill_attention``), compute the SSD chunk
+         (``ssd_chunk_scan``), full-sequence attention with its gradient
+         (``flash_attention``, ``flash_attention_bwd``) and RMSNorm
+         (``rmsnorm``);
   cpu  — the plain path that mirrors the JAX package's jnp lowering: the
          functions of :mod:`repro_torch.models.attention` (after a gather
-         through the block table, for the paged pool) and the SSD oracle.
+         through the block table, for the paged pool), the SSD oracle and
+         the RMSNorm oracle.
 
 Model-facing layouts are (B, S, H, d); the kernels are head-major — the
 wrappers here transpose at the boundary (views, not copies).
@@ -20,12 +23,58 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention)
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill_attention import \
     paged_prefill_attention
 from repro_torch.kernels.prefill_attention import prefill_attention
+from repro_torch.kernels.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 from repro_torch.models import attention
+
+#: from this sequence length on, the CPU path takes the block-causal
+#: ``flash_attention_jnp`` instead of ``naive_attention``, as the JAX
+#: package's jnp backend does (``repro.models.transformer.FLASH_MIN_SEQ``)
+FLASH_MIN_SEQ = 2048
+
+
+def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention. q: (B, S, H, d) (already rotated); k/v:
+    (B, Skv, KV, d) -> (B, S, H, d) in q's dtype.
+
+    On CUDA the flash kernel reads head-major views of the three tensors
+    in place; where autograd records (grad enabled and an input needs a
+    gradient) it goes through :class:`FlashAttention`, whose backward is
+    the backward kernel. On the CPU: ``naive_attention`` below
+    ``FLASH_MIN_SEQ`` positions and ``flash_attention_jnp`` at or above."""
+    if q.device.type == "cpu":
+        if q.shape[1] >= FLASH_MIN_SEQ:
+            return attention.flash_attention_jnp(q, k, v, causal=causal)
+        return attention.naive_attention(q, k, v, causal=causal)
+    qt = q.transpose(1, 2)
+    kt = k.contiguous().transpose(1, 2)
+    vt = v.contiguous().transpose(1, 2)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        o = FlashAttention.apply(qt, kt, vt, causal)
+    else:
+        o = flash_attention(qt, kt, vt, causal=causal)
+    return o.transpose(1, 2)
+
+
+def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., D); w: (D,) float32 -> x's shape and dtype. The kernel on
+    CUDA over the flattened rows; ``ref.rmsnorm_ref`` on the CPU."""
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, w, eps)
+    shape = x.shape
+    o = rmsnorm(x.reshape(-1, shape[-1]).contiguous(), w.contiguous(),
+                eps=eps)
+    return o.reshape(shape)
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,

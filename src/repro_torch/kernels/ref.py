@@ -16,6 +16,77 @@ from repro_torch.models.layers import rope_freqs
 NEG_INF = -1e30
 
 
+def _flash_logits(q: torch.Tensor, k: torch.Tensor,
+                  causal: bool) -> torch.Tensor:
+    """(B, KV, G, Sq, Skv) float32 scaled logits, masked to -1e30."""
+    b, h, sq, d = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kv, h // kv, sq, d).float()
+    scale = 1.0 / math.sqrt(d)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
+    if causal:      # key position <= query position, both from 0
+        valid = torch.ones((sq, skv), dtype=torch.bool,
+                           device=q.device).tril()
+        logits = torch.where(valid, logits,
+                             torch.tensor(NEG_INF, device=q.device))
+    return logits
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """q: (B, H, Sq, d); k/v: (B, KV, Skv, d). GQA H = G*KV. -> (B, H, Sq,
+    d) in q's dtype. Causal: key position <= query position, both counted
+    from 0 (also when Sq != Skv)."""
+    b, h, sq, d = q.shape
+    p = torch.softmax(_flash_logits(q, k, causal), dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True) -> torch.Tensor:
+    """(B, H, Sq) float32 log-sum-exp of each query row's scaled logits —
+    what the forward kernel writes for the backward."""
+    b, h, sq, _ = q.shape
+    return torch.logsumexp(_flash_logits(q, k, causal), dim=-1).reshape(
+        b, h, sq)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            causal: bool = True
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Gradients of :func:`flash_attention_ref` from the forward's output
+    ``o`` and log-sum-exp ``lse`` (B, H, Sq): P = exp(logits - lse),
+    dV = Pᵀ dO, dS = P (dO Vᵀ - rowsum(dO o)), dQ = dS K / sqrt(d),
+    dK = dSᵀ Q / sqrt(d), summed over each KV head's G query heads.
+    -> (dq in q's dtype, dk and dv in k's dtype)."""
+    b, h, sq, d = q.shape
+    kv = k.shape[1]
+    g = h // kv
+    split = (lambda t: t.reshape(b, kv, g, sq, -1).float())
+    p = torch.exp(_flash_logits(q, k, causal) - split(lse))
+    dog = split(do)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dog, v.float())
+    delta = (dog * split(o)).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * (1.0 / math.sqrt(d))
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.float())
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, split(q))
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., D); w: (D,). Float32 mean square, cast back to x's dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
 def rope_ref(x: torch.Tensor, positions: torch.Tensor,
              theta: float) -> torch.Tensor:
     """Rotary embedding. x: (..., d); positions broadcastable to

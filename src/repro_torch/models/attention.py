@@ -1,11 +1,12 @@
 """Attention in plain PyTorch: the port's CPU path.
 
 Counterparts of the jnp lowerings in :mod:`repro.models.attention`
-(``decode_attention_jnp``, ``paged_decode_attention_jnp``,
-``prefill_chunk_attention_jnp``). They gather the paged pool into a padded
-view and materialise the logits — exact and cheap at CPU test shapes. On a
-CUDA tensor :mod:`repro_torch.kernels.ops` sends the paged calls to the
-hand-written kernels instead, which read the pool in place.
+(``naive_attention``, ``flash_attention_jnp``, ``decode_attention_jnp``,
+``paged_decode_attention_jnp``, ``prefill_chunk_attention_jnp``). They
+gather the paged pool into a padded view and materialise the logits (the
+block-causal ``flash_attention_jnp`` per KV block) — exact and cheap at
+CPU test shapes. On a CUDA tensor :mod:`repro_torch.kernels.ops` sends the
+calls to the hand-written kernels instead.
 
 All functions take q: (B, Sq, H, d) and k/v: (B, Skv, KV, d) with GQA
 (H = G * KV) and return (B, Sq, H, d).
@@ -24,6 +25,92 @@ NEG_INF = -1e30
 def _split_gqa(q: torch.Tensor, num_kv: int) -> torch.Tensor:
     b, s, h, d = q.shape
     return q.reshape(b, s, num_kv, h // num_kv, d)
+
+
+def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Materialised attention, the semantic oracle. ``q_offset``: absolute
+    position of q[:, 0] (key positions count from 0). Returns q's dtype."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    qg = _split_gqa(q, kv).float()
+    scale = 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(k.shape[1], device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        logits = torch.where(mask[None, None, None], logits,
+                             torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def _flash_one_qblock(qg: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
+                      *, diag_mask: bool, q_block: int,
+                      kv_block: int) -> torch.Tensor:
+    """qg: (B, qb, KV, G, d); kb/vb: (nj, B, kvb, KV, d) stacked KV blocks.
+
+    Online softmax over the nj KV blocks in order (JAX's ``lax.scan``);
+    only the last (diagonal) block gets the triangular mask when
+    ``diag_mask``. Returns (B, qb, KV, G, d) in qg's dtype."""
+    b, qb, kv, g, d = qg.shape
+    nj = kb.shape[0]
+    scale = 1.0 / math.sqrt(d)
+    qg32 = qg.float() * scale
+    tri = torch.ones((q_block, kv_block), dtype=torch.bool,
+                     device=qg.device).tril()
+    neg = torch.tensor(NEG_INF, device=qg.device)
+    m = torch.full((b, kv, g, qb), NEG_INF, device=qg.device)
+    l = torch.zeros((b, kv, g, qb), device=qg.device)
+    acc = torch.zeros((b, kv, g, qb, d), device=qg.device)
+    for j in range(nj):
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg32, kb[j].float())
+        if diag_mask and j == nj - 1:
+            s = torch.where(tri, s, neg)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + torch.sum(p, dim=-1)
+        # p rounds to v's dtype, the product sums in float32 (JAX's
+        # preferred_element_type)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p.to(vb.dtype).float(), vb[j].float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(qg.dtype)
+
+
+def flash_attention_jnp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, q_block: int = 0,
+                        kv_block: int = 0) -> torch.Tensor:
+    """Block-causal flash attention: the JAX package's jnp lowering, block
+    for block — a Python loop over query blocks, each attending only the
+    KV blocks up to its diagonal (causal). Falls back to
+    :func:`naive_attention` where the blocks do not divide the lengths."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    kv = k.shape[2]
+    q_block = q_block or max(1024, sq // 8)
+    kv_block = kv_block or (q_block if causal else max(1024, skv // 8))
+    q_block = min(q_block, sq)
+    kv_block = min(kv_block, skv)
+    if sq % q_block or skv % kv_block or (causal and q_block != kv_block):
+        return naive_attention(q, k, v, causal=causal)
+    nq = sq // q_block
+    qg = _split_gqa(q, kv)
+    outs = []
+    for i in range(nq):
+        qi = qg[:, i * q_block:(i + 1) * q_block]
+        hi = (i + 1) * kv_block if causal else skv
+        nj = hi // kv_block
+        kb = k[:, :hi].reshape(b, nj, kv_block, kv, d).transpose(0, 1)
+        vb = v[:, :hi].reshape(b, nj, kv_block, kv, d).transpose(0, 1)
+        outs.append(_flash_one_qblock(qi, kb, vb, diag_mask=causal,
+                                      q_block=q_block, kv_block=kv_block))
+    out = torch.cat(outs, dim=1)                       # (B, S, KV, G, d)
+    return out.reshape(b, sq, h, d)
 
 
 def gather_pages(pages: torch.Tensor,

@@ -1,10 +1,13 @@
-"""Uniform model API for the serving engine: the dense and ssm families.
+"""Uniform model API: training, eval and serving for the dense and ssm
+families.
 
-Counterpart of :mod:`repro.models.factory` for the serving path: the dense
-transformer on the paged pool or the contiguous cache, and the Mamba2 LM
-(family ``ssm``), whose recurrent state never pages. Other families (moe,
-vlm, hybrid, encdec) raise ``NotImplementedError``: they are ROADMAP
-queue 1, slice 3.
+Counterpart of :mod:`repro.models.factory`: the dense transformer's
+full-sequence ``forward``, ``loss_fn`` and whole-prompt ``prefill``, and
+its serving steps on the paged pool or the contiguous cache; the Mamba2 LM
+(family ``ssm``), whose recurrent state never pages, serves only (its
+``forward``/``prefill`` need an SSD backward: ROADMAP queue 1, slice 4).
+Other families (moe, vlm, hybrid, encdec) raise ``NotImplementedError``:
+they are ROADMAP queue 1, slice 3.
 
 Every step writes its new cache into the caller's tensors in place and
 returns the same dict; the write casts to the cache's own dtypes, the cast
@@ -19,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import mamba_lm, transformer
+from repro_torch.models import layers, mamba_lm, transformer
 
 Params = Any
 Cache = dict
@@ -42,6 +45,36 @@ class ModelBundle:
         if self.cfg.family == "ssm":
             return mamba_lm.init_params(gen, self.cfg, dtype)
         return transformer.init_params(gen, self.cfg, dtype)
+
+    # ------------------------------------------------------------ forward
+    def _dense_only(self, what: str) -> None:
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"{what} of family {self.cfg.family!r} is not ported yet "
+                "(ROADMAP.md queue 1, slice 4: mamba_lm.forward/prefill and "
+                "the SSD backward)")
+
+    def forward(self, params: Params, batch: dict, *, remat: str = "full"):
+        """batch -> (logits, aux). Train/eval full-sequence pass."""
+        self._dense_only("forward")
+        return transformer.forward(params, batch["tokens"], self.cfg,
+                                   remat=remat)
+
+    def loss_fn(self, params: Params, batch: dict, *,
+                remat: str = "full") -> torch.Tensor:
+        """Next-token cross entropy (+0.01·aux, 0 for the dense family)."""
+        logits, aux = self.forward(params, batch, remat=remat)
+        tokens = batch["tokens"]
+        loss = layers.cross_entropy(logits[:, :-1], tokens[:, 1:],
+                                    batch.get("mask"))
+        return loss + 0.01 * aux
+
+    def prefill(self, params: Params, batch: dict, max_seq: int):
+        """Whole-prompt prefill: (logits (B, S, V), the contiguous cache of
+        :meth:`init_cache` holding the prompt)."""
+        self._dense_only("prefill")
+        return transformer.prefill(params, batch["tokens"], self.cfg,
+                                   max_seq)
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, max_seq: int,

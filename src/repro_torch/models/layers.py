@@ -86,3 +86,22 @@ def unembed(x: torch.Tensor, table_or_head: torch.Tensor,
     if transpose:
         return x @ table_or_head.T
     return x @ table_or_head
+
+
+# ----------------------------------------------------------- cross entropy
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token-level cross entropy in float32, numerically stable: the
+    max is subtracted as a constant (JAX's ``stop_gradient``). ``mask``:
+    (…) weights of the tokens that count; the mean is over their sum."""
+    logits = logits.float()
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    shifted = logits - m.detach()
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+    label_logit = torch.gather(shifted, -1, labels.long()[..., None])[..., 0]
+    nll = lse - label_logit
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

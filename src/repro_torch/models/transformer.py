@@ -1,14 +1,19 @@
-"""Decoder-only transformer LM, dense family: the serving subset.
+"""Decoder-only transformer LM, dense family.
 
-Counterpart of :mod:`repro.models.transformer`: the contiguous-cache
+Counterpart of :mod:`repro.models.transformer`: the full-sequence
+``forward`` (training and eval, with the ``none``/``full``/``dots`` remat
+policies) and whole-prompt ``prefill``; the contiguous-cache
 (``init_cache``, ``decode_step``, ``prefill_chunk``) and paged-pool
 (``init_paged_cache``, ``decode_step_paged``, ``prefill_chunk_paged``)
-serving steps; the int8-KV hint is not ported. Parameters are a nested
-dict with the same leaf names and shapes as the JAX package — the einsum
-layouts ``wq (d, h, hd)``, ``wk``/``wv (d, kv, hd)``, ``wo (h, hd, d)`` —
-with every per-layer leaf stacked on a leading layer axis, so one set of
-weights drives both packages (:mod:`repro_torch.models.convert`). The
-JAX ``lax.scan`` over layers is a Python loop over per-layer views.
+serving steps. Not ported: the int8-KV hint, the distributed hints of
+``attention_block`` (``attn_impl="repeat_kv"``, ``attn_kv_replicated``)
+and ``_residual_constraint``, and the vlm ``embeds``. Parameters are a
+nested dict with the same leaf names and shapes as the JAX package — the
+einsum layouts ``wq (d, h, hd)``, ``wk``/``wv (d, kv, hd)``,
+``wo (h, hd, d)`` — with every per-layer leaf stacked on a leading layer
+axis, so one set of weights drives both packages
+(:mod:`repro_torch.models.convert`). The JAX ``lax.scan`` over layers is a
+Python loop over per-layer views.
 
 Caches are updated IN PLACE: where the JAX functions return a rebuilt
 cache, these write the new keys/values into the caller's tensors and
@@ -24,6 +29,7 @@ Attention never reads it.
 from __future__ import annotations
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -72,6 +78,16 @@ def layer_view(stacked: dict, i: int) -> dict:
             for k, v in stacked.items()}
 
 
+def unstack_layers(stacked: dict, n: int) -> list[dict]:
+    """All ``n`` layers' parameters, each leaf split once with ``unbind``:
+    under autograd its backward is one ``stack`` per leaf, where a select
+    per layer (:func:`layer_view`) would write a zero tensor the size of
+    the whole stacked leaf for every layer."""
+    parts = {k: unstack_layers(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in stacked.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: torch.device, dtype=torch.bfloat16) -> dict:
     """Contiguous KV cache, ``(L, B, max_seq + 1, KV, hd)``: each row's
@@ -111,6 +127,16 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
         q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor, causal: bool = True):
+    """Full-sequence attention (``ops.attention_prefill``: the flash kernel
+    on CUDA). Returns (out, (k, v)) for cache capture."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    o = ops.attention_prefill(q, k, v, causal=causal)
+    out = torch.einsum("bshe,hed->bsd", o, p["wo"])
+    return out, (k, v)
 
 
 def cache_write_index(positions: torch.Tensor, keep: torch.Tensor,
@@ -289,6 +315,85 @@ def _run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------- forward
+
+#: remat "dots" saves these ops' outputs (the projection and MLP products:
+#: matmuls without batch dims, JAX's ``checkpoint_dots_with_no_batch_dims``)
+#: and recomputes everything else, attention included
+_SAVED_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_MATMULS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``none``: keep every activation; ``full``: keep only each layer's
+    input and recompute the layer in the backward pass; ``dots``: keep the
+    matmul outputs too (selective checkpointing)."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return lambda *a: _ckpt.checkpoint(fn, *a, use_reentrant=False)
+    if policy == "dots":
+        return lambda *a: _ckpt.checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=lambda: _ckpt.create_selective_checkpoint_contexts(
+                _save_matmuls))
+    raise ValueError(f"remat policy {policy!r}: none, full or dots")
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            remat: str = "full", causal: bool = True,
+            return_cache: bool = False):
+    """tokens: (B, S) int. Returns (logits (B, S, V), aux_loss) or
+    (logits, aux_loss, cache) with cache = {"k": (L, B, S, KV, hd),
+    "v": ...} (the rotated keys and the values, in the activations' dtype)
+    when ``return_cache``. ``aux_loss`` is 0: the dense family has no MoE
+    balance term."""
+    x = layers.embed(params["embedding"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def body(x, lp):
+        h = layers.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        attn_out, kv = attention_block(lp["attn"], h, cfg, positions, causal)
+        x = x + attn_out
+        h2 = layers.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        x = x + layers.mlp(lp["ffn"], h2)
+        return x, (kv if return_cache else None)
+
+    body = _remat(body, remat)
+    ks, vs = [], []
+    for lp in unstack_layers(params["layers"], cfg.num_layers):
+        x, kv = body(x, lp)
+        if return_cache:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    logits = lm_logits(params, x, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_cache:
+        return logits, aux, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits, aux
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            max_seq: int):
+    """Run the whole prompt; return (logits (B, S, V), cache) with the
+    cache in :func:`init_cache`'s layout — (L, B, max_seq + 1, KV, hd)
+    bfloat16, the prompt's keys/values in the first S positions, zeros
+    after them and in the drop position — ready for :func:`decode_step`.
+    JAX pads its cache to ``max_seq``; a prompt longer than ``max_seq`` is
+    refused here (the port's cache has a fixed slot)."""
+    b, s = tokens.shape
+    if s > max_seq:
+        raise ValueError(f"prompt of {s} tokens exceeds max_seq {max_seq}")
+    logits, _, kv = forward(params, tokens, cfg, remat="none",
+                            return_cache=True)
+    cache = init_cache(cfg, b, max_seq, logits.device)
+    cache["k"][:, :, :s] = kv["k"]
+    cache["v"][:, :, :s] = kv["v"]
+    return logits, cache
+
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 lengths: torch.Tensor, cfg: ModelConfig,

@@ -1,0 +1,278 @@
+"""The port's full-sequence attention and RMSNorm against the JAX package.
+
+* ``ref.flash_attention_ref`` and ``ops.attention_prefill`` (the CPU path:
+  ``naive_attention`` below 2048 positions, ``flash_attention_jnp`` at or
+  above) against the Pallas ``flash_attention`` in interpret mode, JAX's
+  ``naive_attention`` and ``flash_attention_jnp``: GQA / MQA / MHA, causal
+  and not, Sq != Skv (both positions counted from 0), S below and at 2048.
+  Tolerance 2e-5 (float32; tests/test_kernels.py).
+* ``flash_attention_bwd_ref`` and the ``FlashAttention`` autograd wrapper's
+  CPU route against ``jax.grad`` of JAX's jnp attention, on the same
+  cotangent. Tolerance 2e-5 absolute + 2e-5 relative: both sides sum in
+  float32 in another order over at most 64 positions.
+* ``rmsnorm_ref`` / ``ops.fused_rmsnorm`` against the Pallas ``rmsnorm``
+  in interpret mode: 2e-5 in float32, 2e-2 in bfloat16 (one rounding step
+  of the output).
+
+The CUDA kernels are held against the same plain versions on the card
+(the ``gpu`` tests below, and chip_smoke.py).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import \
+    flash_attention as pallas_flash  # noqa: E402
+from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    FlashAttention, flash_attention, flash_attention_bwd)
+from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+
+torch.set_num_threads(2)
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _close(got, want, tol=2e-5):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def _qkv(rng, b, sq, skv, h, kv, d):
+    """Model-layout (B, S, heads, d) float32 q, k, v."""
+    return (rng.standard_normal((b, sq, h, d)).astype(np.float32),
+            rng.standard_normal((b, skv, kv, d)).astype(np.float32),
+            rng.standard_normal((b, skv, kv, d)).astype(np.float32))
+
+
+def _head_major(x):
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+
+
+# (b, sq, skv, h, kv, d): GQA, MQA, MHA; Sq < Skv and Sq > Skv
+SHAPES = [(2, 24, 24, 8, 2, 16), (2, 20, 20, 4, 1, 32), (1, 16, 16, 4, 4, 16),
+          (2, 8, 24, 4, 2, 16), (1, 24, 8, 4, 1, 16)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_pallas_and_jax(shape, causal):
+    b, sq, skv, h, kv, d = shape
+    q, k, v = _qkv(np.random.default_rng(0), b, sq, skv, h, kv, d)
+    qh, kh, vh = _head_major(q), _head_major(k), _head_major(v)
+    got = tref.flash_attention_ref(torch.from_numpy(qh), torch.from_numpy(kh),
+                                   torch.from_numpy(vh), causal=causal)
+    want = jref.flash_attention_ref(jnp.asarray(qh), jnp.asarray(kh),
+                                    jnp.asarray(vh), causal=causal)
+    _close(got, want)
+    pallas = pallas_flash(jnp.asarray(qh), jnp.asarray(kh), jnp.asarray(vh),
+                          causal=causal, q_block=8, kv_block=8,
+                          interpret=True)
+    _close(got, pallas)
+    # the model-layout CPU path and JAX's jnp lowerings
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    o = ops.attention_prefill(tq, tk, tv, causal=causal)
+    _close(o.transpose(1, 2), got)
+    _close(o, jattn.naive_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal))
+    if sq == skv or not causal:
+        blocks = dict(q_block=8, kv_block=8)
+        _close(tattn.flash_attention_jnp(tq, tk, tv, causal=causal, **blocks),
+               jattn.flash_attention_jnp(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), causal=causal,
+                                         **blocks))
+
+
+@pytest.mark.parametrize("q_offset", [0, 5])
+def test_naive_attention_q_offset_matches_jax(q_offset):
+    q, k, v = _qkv(np.random.default_rng(1), 2, 6, 12, 4, 2, 16)
+    got = tattn.naive_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                q_offset=q_offset)
+    want = jattn.naive_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                 q_offset=q_offset)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("h,kv", [(4, 1), (2, 2)])
+def test_cpu_path_at_2048_takes_the_block_causal_lowering(h, kv):
+    """At S = 2048 the CPU path is ``flash_attention_jnp`` (blocks of 1024,
+    a diagonal mask on the last), held against JAX's and the Pallas
+    kernel."""
+    q, k, v = _qkv(np.random.default_rng(2), 1, 2048, 2048, h, kv, 16)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    assert tq.shape[1] >= ops.FLASH_MIN_SEQ
+    got = ops.attention_prefill(tq, tk, tv)
+    _close(got, tattn.flash_attention_jnp(tq, tk, tv))
+    _close(got, jattn.flash_attention_jnp(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v)))
+    pallas = pallas_flash(jnp.asarray(_head_major(q)),
+                          jnp.asarray(_head_major(k)),
+                          jnp.asarray(_head_major(v)), q_block=512,
+                          kv_block=512, interpret=True)
+    _close(got.transpose(1, 2), pallas)
+
+
+def test_flash_jnp_falls_back_to_naive_when_blocks_do_not_divide():
+    q, k, v = _qkv(np.random.default_rng(3), 1, 20, 20, 4, 2, 16)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = tattn.flash_attention_jnp(tq, tk, tv, q_block=8, kv_block=8)
+    _close(got, tattn.naive_attention(tq, tk, tv))
+    _close(got, jattn.flash_attention_jnp(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), q_block=8,
+                                          kv_block=8))
+
+
+# ---------------------------------------------------------------- backward
+def _jax_grads(q, k, v, do, causal):
+    """jax.grad of <naive_attention(q, k, v), do> in model layout."""
+    def f(q, k, v):
+        return jnp.sum(jattn.naive_attention(q, k, v, causal=causal) * do)
+    return jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_plain_matches_jax_grad(shape, causal):
+    b, sq, skv, h, kv, d = shape
+    rng = np.random.default_rng(4)
+    q, k, v = _qkv(rng, b, sq, skv, h, kv, d)
+    do = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    want = _jax_grads(q, k, v, jnp.asarray(do), causal)
+    th = [torch.from_numpy(_head_major(x)) for x in (q, k, v, do)]
+    o = tref.flash_attention_ref(th[0], th[1], th[2], causal=causal)
+    lse = tref.flash_attention_lse_ref(th[0], th[1], causal=causal)
+    got = tref.flash_attention_bwd_ref(th[0], th[1], th[2], o, lse, th[3],
+                                       causal)
+    for g, w in zip(got, want):
+        _close(g.transpose(1, 2), w)
+    # the autograd wrapper's CPU route (forward and backward kernels'
+    # plain versions) through torch.autograd
+    leaves = [t.clone().requires_grad_(True) for t in th[:3]]
+    out = FlashAttention.apply(*leaves, causal)
+    grads = torch.autograd.grad(out, leaves, th[3])
+    for g, w in zip(grads, want):
+        _close(g.transpose(1, 2), w)
+
+
+def test_flash_lse_is_the_row_logsumexp():
+    q, k, _ = _qkv(np.random.default_rng(5), 1, 8, 8, 4, 2, 16)
+    tq, tk = (torch.from_numpy(_head_major(x)) for x in (q, k))
+    lse = tref.flash_attention_lse_ref(tq, tk)
+    o, lse2 = flash_attention(tq, tk, tk, return_lse=True)
+    torch.testing.assert_close(lse, lse2)
+    # row 0 sees key 0 only: its lse is its one scaled logit
+    want = (tq[0, :, 0] * tk[0].repeat_interleave(2, 0)[:, 0]).sum(-1) / 4.0
+    torch.testing.assert_close(lse[0, :, 0], want)
+
+
+# ----------------------------------------------------------------- rmsnorm
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_matches_pallas(dtype):
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((32, 48)).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(48)).astype(np.float32)
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    want = pallas_rmsnorm(jx, jnp.asarray(w), row_block=8, interpret=True)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = tref.rmsnorm_ref(tx, torch.from_numpy(w))
+    assert got.dtype == tx.dtype
+    _close(got.float(), np.asarray(want.astype(jnp.float32)), TOL[dtype])
+    _close(rmsnorm(tx, torch.from_numpy(w)).float(), got.float(), 0.0)
+    # the entry point takes any leading shape and any row count
+    x3 = rng.standard_normal((3, 5, 48)).astype(np.float32)
+    got3 = ops.fused_rmsnorm(torch.from_numpy(x3).to(tx.dtype),
+                             torch.from_numpy(w), 1e-6)
+    want3 = jref.rmsnorm_ref(jnp.asarray(x3).astype(getattr(jnp, dtype)),
+                             jnp.asarray(w), 1e-6)
+    assert got3.shape == x3.shape
+    _close(got3.float(), np.asarray(want3.astype(jnp.float32)), TOL[dtype])
+
+
+def test_flash_and_rmsnorm_wrappers_reject_bad_operands():
+    q = torch.empty((1, 4, 8, 16), device="meta")
+    k = torch.empty((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        flash_attention_bwd(q, k, k, q, q[..., 0], q)
+    with pytest.raises(ValueError, match="q must be"):
+        flash_attention(q[0], k, k)
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        rmsnorm(q[0, 0], torch.empty((16,), device="meta"))
+
+
+# -------------------------------------------------------------------- card
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are built with nvcc and "
+                    "run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_matches_plain_versions(cuda_device, causal, dtype):
+    """Forward, lse and backward kernels against their plain versions on
+    the card, with a ragged length and Sq != Skv; the autograd wrapper's
+    dq, dk, dv against torch.autograd of the plain forward (float32:
+    2e-5 + 2e-5·|plain|; bfloat16 inputs: 2e-2)."""
+    dev, dt = cuda_device, getattr(torch, dtype)
+    tol = TOL[dtype]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for b, sq, skv, h, kv, d in [(2, 200, 200, 32, 4, 64),
+                                 (1, 64, 130, 8, 8, 64)]:
+        q, k, v = (torch.randn((b, n, hh, d), generator=gen, device=dev)
+                   .to(dt).transpose(1, 2)
+                   for n, hh in ((sq, h), (skv, kv), (skv, kv)))
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        torch.testing.assert_close(
+            o.float(), tref.flash_attention_ref(q, k, v, causal=causal).float(),
+            atol=tol, rtol=tol)
+        torch.testing.assert_close(
+            lse, tref.flash_attention_lse_ref(q, k, causal=causal),
+            atol=tol, rtol=tol)
+        do = torch.randn(o.shape, generator=gen, device=dev).to(dt)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = tref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), atol=tol,
+                                       rtol=tol)
+        if dtype == "float32":
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            grads = torch.autograd.grad(FlashAttention.apply(*leaves, causal),
+                                        leaves, do)
+            ref_leaves = [t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v)]
+            ref_grads = torch.autograd.grad(
+                tref.flash_attention_ref(*ref_leaves, causal=causal),
+                ref_leaves, do)
+            for g, w in zip(grads, ref_grads):
+                torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_matches_plain_version(cuda_device, dtype):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    w = 1 + 0.1 * torch.randn((2048,), generator=gen, device=cuda_device)
+    for rows in (4096, 4095, 1):
+        x = torch.randn((rows, 2048), generator=gen, device=cuda_device).to(dt)
+        torch.testing.assert_close(rmsnorm(x, w).float(),
+                                   tref.rmsnorm_ref(x, w).float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    torch.cuda.synchronize()

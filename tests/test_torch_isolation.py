@@ -5,7 +5,9 @@
 * no import statement in ``src/repro_torch`` or ``chip_smoke.py`` names
   ``jax`` or ``repro``;
 * an entry point's default device is CUDA: without a usable GPU it raises
-  rather than carrying on on the CPU.
+  rather than carrying on on the CPU;
+* a kernel whose library cannot load raises: the CUDA route never falls
+  back to the plain version.
 """
 import re
 import subprocess
@@ -57,7 +59,7 @@ def test_no_jax_or_repro_imports_in_sources():
 def test_default_device_raises_without_cuda(monkeypatch):
     from repro_torch.configs.registry import get_config
     from repro_torch.device import resolve_device
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models.factory import build_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -68,7 +70,44 @@ def test_default_device_raises_without_cuda(monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--reduced", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--reduced", "--steps", "1"])
     assert build_model(cfg, "cpu").device.type == "cpu"
+
+
+def test_flash_attention_cuda_route_raises_when_the_library_cannot_load(
+        monkeypatch):
+    """The CUDA route of ``FlashAttention`` (and of the backward) goes to
+    the kernel library; when it cannot be built or loaded the call raises,
+    and the plain version is never called in its place. Meta tensors stand
+    in for CUDA tensors past the device check."""
+    import contextlib
+    import types
+
+    from repro_torch.kernels import build, common, ref
+    from repro_torch.kernels import flash_attention as fa
+
+    def no_library(name):
+        raise RuntimeError(f"cannot load {name}")
+
+    def no_fallback(*args, **kwargs):
+        raise AssertionError("the plain version was called")
+
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(common, "check_flash_operands", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    for name in ("flash_attention_ref", "flash_attention_lse_ref",
+                 "flash_attention_bwd_ref"):
+        monkeypatch.setattr(ref, name, no_fallback)
+    q = torch.empty((1, 4, 8, 16), device="meta", requires_grad=True)
+    k = torch.empty((1, 2, 8, 16), device="meta", requires_grad=True)
+    with pytest.raises(RuntimeError, match="cannot load flash_attention"):
+        fa.FlashAttention.apply(q, k, k, True)
+    lse = torch.empty((1, 4, 8), device="meta")
+    with pytest.raises(RuntimeError, match="cannot load flash_attention_bwd"):
+        fa.flash_attention_bwd(q, k, k, q.detach(), lse, q.detach())
 
 
 def test_other_families_are_refused():

@@ -255,9 +255,12 @@ def test_build_names_libraries_by_sources_and_flags(monkeypatch, tmp_path):
     edited kernel is never served from a stale build; without nvcc the
     build raises instead of falling back."""
     from repro_torch.kernels import build
-    assert build.sources() == ["decode_attention", "paged_decode_attention",
+    assert build.sources() == ["decode_attention", "flash_attention",
+                               "flash_attention_bwd",
+                               "paged_decode_attention",
                                "paged_prefill_attention",
-                               "prefill_attention", "ssd_chunk_scan"]
+                               "prefill_attention", "rmsnorm",
+                               "ssd_chunk_scan"]
     a = build.library_path("paged_decode_attention")
     assert a == build.library_path("paged_decode_attention")
     assert a != build.library_path("paged_prefill_attention")
