@@ -9,7 +9,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               and power limit as nvidia-smi reports them.
 2. build    — compiles every kernel under src/repro_torch/kernels/csrc with
               nvcc (one process per source, all started together) and
-              prints the seconds and ptxas's register/shared-memory report.
+              prints the seconds and ptxas's report: registers, shared
+              memory and spills of every kernel instance.
 3. kernels  — each kernel's wrapper at the serving paths' shapes against
               its plain PyTorch version on the same card:
               * paged decode / prefill (tinyllama-1.1b, 4 slots, page 16,
@@ -28,8 +29,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                 and 1024 causal in float32 and bfloat16, a ragged S = 1000,
                 and Sq = 256 against Skv = 2048 without the mask; the
                 forward's log-sum-exp; the backward kernel's dq, dk, dv at
-                S = 1024 (float32, bfloat16), and the autograd wrapper's
-                against torch.autograd of the plain forward;
+                S = 1024 (float32, bfloat16; both timed), and the autograd
+                wrapper's against torch.autograd of the plain forward;
               * RMSNorm over 4096 and 4095 rows of 2048, float32 and
                 bfloat16;
               serving attention in q float32 with caches bfloat16 (the
@@ -42,7 +43,15 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               scaled_dot_product_attention on the pre-rotated,
               head-expanded view (forward + backward for the backward
               kernel), F.rms_norm; no single PyTorch call computes the SSD
-              chunk.
+              chunk. Bound: the larger of bytes / 3.35 TB/s and float32
+              flops / 67 TFLOP/s (the SIMT rate the other kernels run at);
+              for the two flash kernels, which run their products on the
+              tensor cores, the largest of bytes / 3.35 TB/s, matrix flops
+              at the rate of their route — 989 TFLOP/s bf16, 494.7 / 3
+              TFLOP/s for 3xTF32, the card's float32-accurate tensor-core
+              route — and one exp a visible pair / 3.9e12 (the
+              special-function units): a bound at the SIMT rate would be
+              beaten by a tensor-core kernel, which no bound may allow.
 4. serve    — repro_torch.launch.serve.main at full width, 8 chat requests,
               4 slots, max-seq 256, 16 new tokens, chunk 16, policy
               chunked, random float32 weights from seed 0, on three paths:
@@ -92,6 +101,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_MMA_FLOPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+TF32_MMA_FLOPS_PER_S = 494.7e12  # H100 SXM TF32 tensor cores, dense
+EXP_PER_S = 3.9e12               # 16 exp a clock on each of 132 SMs
 ATOL = RTOL = 2e-5
 BF16_TOL = 2e-2
 
@@ -141,7 +153,8 @@ def build_phase(build):
         f"({', '.join(f'{k} {v:.1f}s' for k, v in seconds.items())})")
     for name, text in build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
                 log(f"ptxas {name}: {line.strip()}")
 
 
@@ -459,20 +472,61 @@ def flash_pairs(sq, skv, causal):
 
 
 def flash_bound(sq, skv, causal, elt, lse=False):
-    """Bytes: q, k, v read once, o written once (and lse); operations: q·k
-    and p·v, 2·d each, per visible pair and head."""
+    """Bytes: q, k, v read once, o written once (and lse); matrix flops: q·k
+    and p·v, 2·d each, per visible pair and head; one exp a visible pair
+    and head."""
     byts = elt * (B * H * sq * D * 2 + 2 * B * KV * skv * D)
     byts += 4 * B * H * sq if lse else 0
-    return byts, 4 * D * B * H * flash_pairs(sq, skv, causal)
+    pairs = B * H * flash_pairs(sq, skv, causal)
+    return byts, 4 * D * pairs, pairs
 
 
 def flash_bwd_bound(sq, skv, causal, elt):
     """Bytes: q, k, v, o, dO and lse read once, dq, dk, dv written once;
-    operations: q·k again, dO·v, Pᵀ dO, dSᵀ q and dS k, 2·d each, per
-    visible pair and head — 2.5× the forward's."""
+    matrix flops: q·k again, dO·v, Pᵀ dO, dSᵀ q and dS k, 2·d each, per
+    visible pair and head — 2.5× the forward's; one exp a visible pair and
+    head (P once)."""
     byts = (elt * (B * H * sq * D * 4 + 4 * B * KV * skv * D)
             + 4 * B * H * sq)
-    return byts, 10 * D * B * H * flash_pairs(sq, skv, causal)
+    pairs = B * H * flash_pairs(sq, skv, causal)
+    return byts, 10 * D * pairs, pairs
+
+
+def flash_bound_entry(byts, flops, exps, bf16):
+    """The least time of a flash kernel on the tensor cores: bytes at
+    3.35 TB/s, matrix flops at its route's rate (bf16 when q and k/v are
+    bfloat16, else 3xTF32 — three TF32 products a float32 product), exps
+    at 3.9e12 a second; the largest of the three."""
+    rate = BF16_MMA_FLOPS_PER_S if bf16 else TF32_MMA_FLOPS_PER_S / 3
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / rate, exps / EXP_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_bwd_f64(torch, q, k, v, o, lse, do):
+    """flash_attention_bwd_ref's formulas (causal) evaluated in float64 on
+    the same inputs: the yardstick of how far the kernel and the float32
+    plain version each are from the exact gradients."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    sp = (lambda t: t.double().reshape(b, kv, h // kv, s, -1))
+    logits = torch.einsum("bkgqd,bksd->bkgqs", sp(q), k.double()) / math.sqrt(d)
+    visible = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    p = torch.exp(torch.where(visible, logits, torch.tensor(
+        -1e30, dtype=torch.float64, device=q.device)) - sp(lse))
+    dog = sp(do)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dog, v.double())
+    ds = p * (dp - (dog * sp(o)).sum(-1, keepdim=True)) / math.sqrt(d)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.double()).reshape(q.shape)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, sp(q))
+    return dq, dk, dv
+
+
+def tol_share(torch, got, want, tol=ATOL):
+    """The largest |got - want| / (tol + tol·|want|): 1 is the tolerance."""
+    err = (got.double() - want.double()).abs()
+    return (err / (tol + tol * want.double().abs())).max().item()
 
 
 def flash_inputs(torch, gen, dev, sq, skv, dtype):
@@ -513,8 +567,9 @@ def flash_kernel_phase(torch, F, K, ref, gen, dev, out):
                 q, k, v, causal=causal), 5)
             lib_ms = timed_ms(torch, lambda: sdpa_full(torch, F, q, k, v,
                                                        causal), 10)
-            bound = bound_entry(*flash_bound(sq, skv, causal,
-                                             q.element_size()))
+            bound = flash_bound_entry(
+                *flash_bound(sq, skv, causal, q.element_size()),
+                bf16=dname == "bfloat16")
             line += (f" | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
                      f"sdpa {lib_ms:.4f} ms | bound {bound[0]:.4f} ms "
                      f"({bound[1]})")
@@ -540,10 +595,19 @@ def flash_kernel_phase(torch, F, K, ref, gen, dev, out):
         errs = [check_close(f"flash_attention_bwd {n} [S={s} {dname}]",
                             g, w, tol)
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)]
-        del got, want
         line = (f"flash_attention_bwd S={s} causal {dname}: max abs err dq "
                 f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (tol {tol}"
                 f" + {tol}*|plain|)")
+        if dname == "float32":
+            exact = flash_bwd_f64(torch, q, k, v, o, lse, do)
+            share = [[tol_share(torch, a, e) for a, e in zip(side, exact)]
+                     for side in (got, want)]
+            del exact
+            line += ("; share of the tolerance against float64 gradients: "
+                     "kernel dq/dk/dv " + "/".join(f"{x:.3f}" for x in share[0])
+                     + ", plain float32 " + "/".join(f"{x:.3f}"
+                                                      for x in share[1]))
+        del got, want
         if dname == "float32":
             from repro_torch.kernels.flash_attention import FlashAttention
             leaves = [t.detach().clone().requires_grad_(True)
@@ -562,18 +626,21 @@ def flash_kernel_phase(torch, F, K, ref, gen, dev, out):
             line += (f"; autograd wrapper vs torch.autograd of the plain "
                      f"forward: dq {auto[0]:.3e} dk {auto[1]:.3e} dv "
                      f"{auto[2]:.3e}")
-            ms = timed_ms(torch, lambda: bwd(q, k, v, o, lse, do,
-                                             causal=True), 10)
-            plain_ms = timed_ms(torch, lambda: ref.flash_attention_bwd_ref(
-                q, k, v, o, lse, do, True), 5)
-            ql, kl, vl = (t.detach().clone().requires_grad_(True)
-                          for t in (q, k, v))
-            lib_ms = timed_ms(torch, lambda: torch.autograd.grad(
-                sdpa_full(torch, F, ql, kl, vl, True), (ql, kl, vl), do), 10)
-            bound = bound_entry(*flash_bwd_bound(s, s, True, 4))
-            line += (f" | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-                     f"sdpa fwd+bwd {lib_ms:.4f} ms | bound {bound[0]:.4f} "
-                     f"ms ({bound[1]})")
+        ms = timed_ms(torch, lambda: bwd(q, k, v, o, lse, do, causal=True),
+                      10)
+        plain_ms = timed_ms(torch, lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, True), 5)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        lib_ms = timed_ms(torch, lambda: torch.autograd.grad(
+            sdpa_full(torch, F, ql, kl, vl, True), (ql, kl, vl), do), 10)
+        bound = flash_bound_entry(
+            *flash_bwd_bound(s, s, True, q.element_size()),
+            bf16=dname == "bfloat16")
+        line += (f" | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+                 f"sdpa fwd+bwd {lib_ms:.4f} ms | bound {bound[0]:.4f} "
+                 f"ms ({bound[1]})")
+        if dname == "float32":
             out["flash_attention_bwd"] = row(max(errs), ms, plain_ms, bound,
                                              lib_ms)
         log(line)
@@ -716,8 +783,10 @@ def profile_dispatches(torch, what, calls, n=10):
             f"{wall_ms:.3f} ms/dispatch, device busy {dev_ms:.3f} ms "
             f"({100 * dev_ms / wall_ms:.1f}% of wall), "
             f"{sum(r[1] for r in rows)} kernels")
-        for t, cnt, key in rows[:8]:
-            log(f"  {t:.4f} ms  x{cnt}  {key[:90]}")
+        # the eight largest, then the repository's own kernels below them
+        for i, (t, cnt, key) in enumerate(rows):
+            if i < 8 or "(anonymous namespace)" in key:
+                log(f"  {t:.4f} ms  x{cnt}  {key[:90]}")
 
 
 def dispatch_inputs(torch, vocab, dev):

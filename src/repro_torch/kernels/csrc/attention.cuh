@@ -1,6 +1,6 @@
-// Device code shared by the attention kernels: decode and prefill against
-// the paged pool and against the contiguous per-slot cache, and the
-// full-sequence flash-attention forward (a prefill with no cache history).
+// Device code shared by the serving attention kernels: decode and prefill
+// against the paged pool and against the contiguous per-slot cache. (The
+// full-sequence flash kernels have their own, flash_mma.cuh.)
 //
 // All compute softmax(q k^T / sqrt(d)) v for query rows against a KV cache
 // read in place, in the model's layout, by pointer arithmetic — never
@@ -106,15 +106,12 @@ inline size_t smem_floats(int nwarps, int tile, int d) {
 //   qpos     — the row's absolute position: RoPE angle and causal horizon
 //   horizon  — the largest qpos of the CTA's rows; tiles past it are skipped
 //   inv_freq — d/2 RoPE inverse frequencies, or nullptr for no RoPE
-//   lse_out  — where to write the row's log-sum-exp of the scaled logits,
-//              m + log(l) (what a backward pass needs), or nullptr
 template <typename TQ, typename TKV, typename Addr>
 __device__ void attend(const TQ* __restrict__ q_row, TQ* __restrict__ o_row,
                        bool has_row, int qpos, int horizon,
                        const TKV* __restrict__ k, const TKV* __restrict__ v,
                        const Addr& addr, int d,
-                       const float* __restrict__ inv_freq, float scale,
-                       float* __restrict__ lse_out = nullptr) {
+                       const float* __restrict__ inv_freq, float scale) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -213,7 +210,6 @@ __device__ void attend(const TQ* __restrict__ q_row, TQ* __restrict__ o_row,
       const int e = lane + 32 * i;
       if (e < d) store_f32(o_row + e, acc[i] / denom);
     }
-    if (lse_out != nullptr && lane == 0) *lse_out = m + logf(l);
   }
 }
 

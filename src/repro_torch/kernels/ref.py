@@ -79,6 +79,19 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
             dv.to(v.dtype))
 
 
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(big, small), both float32 holding TF32 values: big is x rounded to
+    TF32 (10 mantissa bits) to nearest, ties away from zero — half of the
+    13 dropped bits added to the magnitude, then cleared; small is the
+    remainder x - big (exact in float32) as the tensor cores read it, its
+    13 low bits dropped. The 3xTF32 route of the flash kernels forms a
+    product a·b as big·big + big·small + small·big (csrc/flash_mma.cuh)."""
+    x = x.float().contiguous()
+    big = ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    rest = (x - big).contiguous()
+    return big, (rest.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
     """x: (..., D); w: (D,). Float32 mean square, cast back to x's dtype."""

@@ -13,9 +13,14 @@
 * ``rmsnorm_ref`` / ``ops.fused_rmsnorm`` against the Pallas ``rmsnorm``
   in interpret mode: 2e-5 in float32, 2e-2 in bfloat16 (one rounding step
   of the output).
+* The precision plan of the flash kernels' float32 route, on the CPU:
+  ``ref.tf32_split`` and the plain forward and backward with every product
+  formed in 3xTF32 stay within 2e-5 + 2e-5·|plain| at S = 2048; one TF32
+  product does not.
 
 The CUDA kernels are held against the same plain versions on the card
-(the ``gpu`` tests below, and chip_smoke.py).
+(the ``gpu`` tests below, and chip_smoke.py):
+``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_*.py``.
 """
 import numpy as np
 import pytest
@@ -175,6 +180,89 @@ def test_flash_lse_is_the_row_logsumexp():
     torch.testing.assert_close(lse[0, :, 0], want)
 
 
+# ------------------------------------------------------- 3xTF32 precision
+def test_tf32_split_rounds_to_nearest():
+    """``ref.tf32_split``: big keeps 10 mantissa bits (nearest, ties away
+    from zero, as cvt.rna.tf32.f32), small the remainder with its 13 low
+    bits dropped (as the tensor cores read it), and big + small is x within
+    2^-21 of |x|."""
+    x = torch.tensor([1.0, 1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -12,
+                      3.0e-3, 0.0])
+    big, small = tref.tf32_split(x)
+    assert big.tolist()[:4] == [1.0, 1 + 2 ** -10, -(1 + 2 ** -10),
+                                1 + 2 ** -10]
+    assert small[0] == 0 and small[5] == 0 and big[5] == 0
+    r = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        100_000).astype(np.float32))
+    big, small = tref.tf32_split(r)
+    for part in (big, small):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert ((big - r).abs() <= 2 ** -11 * r.abs()).all()
+    assert ((big + small - r).abs() <= 2 ** -21 * r.abs()).all()
+
+
+def _split_einsum(eq, a, b, terms):
+    """``einsum(eq, a, b)`` with every product formed from the operands'
+    TF32 splits: big·big + big·small + small·big (terms = 3, the kernels'
+    float32 route), or big·big alone (terms = 1), summed in float32."""
+    ab, asm = tref.tf32_split(a)
+    bb, bsm = tref.tf32_split(b)
+    out = torch.einsum(eq, ab, bb)
+    if terms == 3:
+        out = out + (torch.einsum(eq, ab, bsm) + torch.einsum(eq, asm, bb))
+    return out
+
+
+def _split_flash(q, k, v, do, terms):
+    """The plain causal forward and backward (``flash_attention_ref``,
+    ``flash_attention_bwd_ref``) with all seven products — q·kᵀ, p·v, and
+    the backward's pᵀ·dO, dO·vᵀ, dS·k, dSᵀ·q — through _split_einsum.
+    -> (o, (dq, dk, dv))."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    qg = q.reshape(b, kv, h // kv, s, d)
+    dog = do.reshape(qg.shape)
+    scale = 1.0 / np.sqrt(d)
+    logits = _split_einsum("bkgqd,bksd->bkgqs", qg, k, terms) * scale
+    visible = torch.ones((s, s), dtype=torch.bool).tril()
+    logits = torch.where(visible, logits, torch.tensor(tref.NEG_INF))
+    p = torch.exp(logits - torch.logsumexp(logits, -1, keepdim=True))
+    o = _split_einsum("bkgqs,bksd->bkgqd", p, v, terms)
+    dv = _split_einsum("bkgqs,bkgqd->bksd", p, dog, terms)
+    dp = _split_einsum("bkgqd,bksd->bkgqs", dog, v, terms)
+    ds = p * (dp - (dog * o).sum(-1, keepdim=True)) * scale
+    dq = _split_einsum("bkgqs,bksd->bkgqd", ds, k, terms)
+    dk = _split_einsum("bkgqs,bkgqd->bksd", ds, qg, terms)
+    return o.reshape(q.shape), (dq.reshape(q.shape), dk, dv)
+
+
+def _within(got, want, tol=TOL["float32"]):
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_3xtf32_products_keep_the_float32_tolerance(d):
+    """The precision plan of the flash kernels' float32 route, on the CPU:
+    with every product formed as big·big + big·small + small·big, the
+    forward and backward at S = 2048 (GQA, causal) stay within 2e-5 +
+    2e-5·|plain| of the plain versions; with big·big alone (one TF32
+    product) they do not, which is why the kernels pay for three."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(_head_major(x))
+               for x in _qkv(rng, 1, 2048, 2048, 2, 1, d))
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32))
+    o = tref.flash_attention_ref(q, k, v)
+    lse = tref.flash_attention_lse_ref(q, k)
+    grads = tref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    o3, grads3 = _split_flash(q, k, v, do, terms=3)
+    assert _within(o3, o)
+    for g3, g in zip(grads3, grads):
+        assert _within(g3, g)
+    o1, grads1 = _split_flash(q, k, v, do, terms=1)
+    assert not _within(o1, o)
+    assert not all(_within(g1, g) for g1, g in zip(grads1, grads))
+
+
 # ----------------------------------------------------------------- rmsnorm
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_plain_matches_pallas(dtype):
@@ -220,47 +308,62 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: (b, sq, skv, h, kv, d): a ragged GQA block and Sq < Skv at d = 64, the
+#: registry's other head dims (16 reduced, 80 stablelm-3b, 128 qwen3-14b,
+#: 160 stablelm-12b), Sq of 1, 63, 65 and 200, and Sq > Skv
+CUDA_FLASH_SHAPES = [(2, 200, 200, 32, 4, 64), (1, 64, 130, 8, 8, 64),
+                     (1, 1, 77, 4, 2, 16), (1, 63, 63, 4, 1, 80),
+                     (2, 65, 65, 8, 2, 128), (1, 200, 96, 4, 2, 160),
+                     (1, 130, 64, 4, 4, 64)]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", CUDA_FLASH_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_flash_matches_plain_versions(cuda_device, causal, dtype):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float32/bfloat16"])
+def test_cuda_flash_matches_plain_versions(cuda_device, shape, causal, dtype):
     """Forward, lse and backward kernels against their plain versions on
-    the card, with a ragged length and Sq != Skv; the autograd wrapper's
-    dq, dk, dv against torch.autograd of the plain forward (float32:
-    2e-5 + 2e-5·|plain|; bfloat16 inputs: 2e-2)."""
-    dev, dt = cuda_device, getattr(torch, dtype)
-    tol = TOL[dtype]
+    the card: q and k/v both float32 (the 3xTF32 route), both bfloat16
+    (the bf16 route) or q float32 with k/v bfloat16; the backward run twice
+    is bitwise equal (no atomics); in float32 the autograd wrapper's dq,
+    dk, dv against torch.autograd of the plain forward. Each output's
+    tolerance is its dtype's (float32: 2e-5 + 2e-5·|plain|; bfloat16:
+    2e-2)."""
+    dev = cuda_device
+    qname, _, kname = dtype.partition("/")
+    kname = kname or qname
+    qt, kt = getattr(torch, qname), getattr(torch, kname)
+    tq, tk = TOL[qname], TOL[kname]
     gen = torch.Generator(device=dev).manual_seed(0)
-    for b, sq, skv, h, kv, d in [(2, 200, 200, 32, 4, 64),
-                                 (1, 64, 130, 8, 8, 64)]:
-        q, k, v = (torch.randn((b, n, hh, d), generator=gen, device=dev)
-                   .to(dt).transpose(1, 2)
-                   for n, hh in ((sq, h), (skv, kv), (skv, kv)))
-        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
-        torch.testing.assert_close(
-            o.float(), tref.flash_attention_ref(q, k, v, causal=causal).float(),
-            atol=tol, rtol=tol)
-        torch.testing.assert_close(
-            lse, tref.flash_attention_lse_ref(q, k, causal=causal),
-            atol=tol, rtol=tol)
-        do = torch.randn(o.shape, generator=gen, device=dev).to(dt)
-        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-        want = tref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g.float(), w.float(), atol=tol,
-                                       rtol=tol)
-        if dtype == "float32":
-            leaves = [t.detach().clone().requires_grad_(True)
+    b, sq, skv, h, kv, d = shape
+    q, k, v = (torch.randn((b, n, hh, d), generator=gen, device=dev)
+               .to(dt).transpose(1, 2)
+               for n, hh, dt in ((sq, h, qt), (skv, kv, kt), (skv, kv, kt)))
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.testing.assert_close(
+        o.float(), tref.flash_attention_ref(q, k, v, causal=causal).float(),
+        atol=tq, rtol=tq)
+    torch.testing.assert_close(
+        lse, tref.flash_attention_lse_ref(q, k, causal=causal),
+        atol=tq, rtol=tq)
+    do = torch.randn(o.shape, generator=gen, device=dev).to(qt)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = tref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    for g, w, tol in zip(got, want, (tq, tk, tk)):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    if qname == kname == "float32":
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        grads = torch.autograd.grad(FlashAttention.apply(*leaves, causal),
+                                    leaves, do)
+        ref_leaves = [t.detach().clone().requires_grad_(True)
                       for t in (q, k, v)]
-            grads = torch.autograd.grad(FlashAttention.apply(*leaves, causal),
-                                        leaves, do)
-            ref_leaves = [t.detach().clone().requires_grad_(True)
-                          for t in (q, k, v)]
-            ref_grads = torch.autograd.grad(
-                tref.flash_attention_ref(*ref_leaves, causal=causal),
-                ref_leaves, do)
-            for g, w in zip(grads, ref_grads):
-                torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+        ref_grads = torch.autograd.grad(
+            tref.flash_attention_ref(*ref_leaves, causal=causal),
+            ref_leaves, do)
+        for g, w in zip(grads, ref_grads):
+            torch.testing.assert_close(g, w, atol=tq, rtol=tq)
     torch.cuda.synchronize()
 
 
