@@ -1,0 +1,83 @@
+#!/usr/bin/env python3
+"""A/B of the paged serving path of two trees of this repository on one GPU.
+
+  python3 chip_ab.py PARENT_DIR [CHANGE_DIR]   # CHANGE_DIR: this tree
+
+PARENT_DIR is an unpacked ``git archive`` of the other commit (in a
+directory that .gitignore lists, e.g. chip_check/). Each tree runs in its
+own process, in the order parent, change, change, parent, so that drift of
+the card or the host shows as a difference between the two runs of one
+tree. Each process, with that tree's own code (its chip_smoke.py phase
+functions): builds the four serving attention kernels, holds the paged and
+contiguous ones against their plain versions and times them at the serving
+shapes (phase 3), serves the paged tinyllama-1.1b trace with exact launch
+counts (phase 4: TTFT, TPOT), and profiles a paged decode step and prefill
+chunk (host wall, device busy). Needs one card; exits nonzero if any
+process fails.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def one(root: str) -> None:
+    import torch
+    import torch.nn.functional as F
+    sys.path[:0] = [root + "/src", root]
+    import chip_smoke as cs
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build, ref
+    from repro_torch.launch import serve
+
+    tag = f"[ab {root}]"
+    cs.device_phase(torch)
+    resolve_device("cuda")
+    t0 = time.monotonic()
+    build.build(["paged_decode_attention", "paged_prefill_attention",
+                 "decode_attention", "prefill_attention"])
+    print(f"{tag} built in {time.monotonic() - t0:.1f}s", flush=True)
+    K = cs.wrappers()
+    dev = torch.device("cuda")
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    cs.paged_kernel_phase(torch, F, K, ref, gen, dev, out)
+    cs.contiguous_kernel_phase(torch, F, K, ref, gen, dev, out)
+    for name, r in out.items():
+        print(f"{tag} {name}: kernel {r['ms']:.6f} ms | sdpa "
+              f"{r['library_ms']:.6f} ms", flush=True)
+    engine, _ = cs.serve_phase(torch, serve, K, "paged tinyllama-1.1b")
+    model, params = engine.model, engine.params
+    cache = model.init_paged_cache(1 + 4 * cs.NB, cs.PAGE, cs.B, cs.S)
+    bt = torch.arange(1, 1 + cs.B * cs.NB, dtype=torch.int32,
+                      device=dev).reshape(cs.B, cs.NB)
+    ln, act, tok1, tokc = cs.dispatch_inputs(torch, engine.cfg.vocab_size,
+                                             dev)
+    cs.profile_dispatches(torch, tag, {
+        "decode step": lambda: model.decode_step_paged(
+            params, cache, tok1, ln, bt, act),
+        "prefill chunk": lambda: model.prefill_chunk_paged(
+            params, cache, tokc, ln, bt, act, None),
+    }, n=20)
+
+
+def main(argv: list[str]) -> None:
+    if len(argv) == 2 and argv[0] == "--one":
+        one(argv[1])
+        return
+    if len(argv) not in (1, 2):
+        sys.exit(__doc__)
+    parent = str(Path(argv[0]).resolve())
+    change = str(Path(argv[1]).resolve()) if len(argv) == 2 else str(ROOT)
+    for root in (parent, change, change, parent):
+        rc = subprocess.run([sys.executable, __file__, "--one", root]).returncode
+        if rc:
+            sys.exit(f"chip_ab: the run of {root} failed (exit {rc})")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -16,7 +16,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               * paged decode / prefill (tinyllama-1.1b, 4 slots, page 16,
                 256-token table, chunk 16): ragged lengths, garbage in the
                 sentinel page and past every length, an idle slot, prefill
-                horizons crossing pages;
+                horizons crossing pages; each called twice, bitwise equal
+                (the cluster combines run in a fixed order), and the
+                wrappers' shared-memory reckoning against the kernels';
               * contiguous decode / prefill (the same widths, a 256-position
                 slot): decode lengths 37/256/1/0, prefill starts
                 0/7/200/240, the model-layout cache read in place through
@@ -45,11 +47,13 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               kernel), F.rms_norm; no single PyTorch call computes the SSD
               chunk. Bound: the larger of bytes / 3.35 TB/s and float32
               flops / 67 TFLOP/s (the SIMT rate the other kernels run at);
-              for the two flash kernels, which run their products on the
-              tensor cores, the largest of bytes / 3.35 TB/s, matrix flops
-              at the rate of their route — 989 TFLOP/s bf16, 494.7 / 3
-              TFLOP/s for 3xTF32, the card's float32-accurate tensor-core
-              route — and one exp a visible pair / 3.9e12 (the
+              for the kernels that run their products on the tensor cores
+              (the two flash kernels, the paged prefill), the largest of
+              bytes / 3.35 TB/s, matrix flops at the rate of their route —
+              989 TFLOP/s bf16, 494.7 / 3 TFLOP/s for 3xTF32, the card's
+              float32-accurate tensor-core route, 494.7 / 2 for q float32
+              against a bfloat16 pool (bfloat16 is exact in TF32: two
+              products) — and one exp a visible pair / 3.9e12 (the
               special-function units): a bound at the SIMT rate would be
               beaten by a tensor-core kernel, which no bound may allow.
 4. serve    — repro_torch.launch.serve.main at full width, 8 chat requests,
@@ -237,6 +241,12 @@ def prefill_bound(starts, table_bytes):
     return byts, flops
 
 
+def prefill_pairs(starts):
+    """Visible (query row, position) pairs of one head: chunk token c of a
+    row starting at s sees s + c + 1 positions."""
+    return sum(C * (s + 1) + C * (C - 1) // 2 for s in starts)
+
+
 def ssd_bound(m, q, h, p, n):
     """Bytes: every input read once (x, dt, cum, B, C) and both outputs
     written once (y, state), float32. Operations: C·Bᵀ on the lower
@@ -257,6 +267,51 @@ def bound_entry(byts, flops):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def paged_prefill_bound_entry(starts, table_bytes):
+    """The paged prefill's least time on the tensor cores: q float32
+    against a bfloat16 pool forms each product as two TF32 products (a
+    bfloat16 value is exact in TF32), so its matrix flops run at 494.7 / 2
+    TFLOP/s; one exp a visible pair and head."""
+    byts, flops = prefill_bound(starts, table_bytes)
+    return flash_bound_entry(byts, flops, H * prefill_pairs(starts), False,
+                             products=2)
+
+
+def reckoning_check(torch):
+    """The wrappers' shared-memory reckoning (common.paged_decode_smem,
+    paged_prefill_smem) against the kernels' own (the C entries beside
+    them), at the serving shape and the extremes of G, d and the dtypes."""
+    from repro_torch.kernels import build, common
+    dec = build.load("paged_decode_attention").paged_decode_attention_smem
+    pre = build.load("paged_prefill_attention").paged_prefill_attention_smem
+    for fn in (dec, pre):
+        fn.argtypes = [build.ctypes.c_int] * 3
+        fn.restype = build.ctypes.c_longlong
+    for d in (16, D, 80, 256):
+        for kv_elt in (2, 4):
+            for g in (1, H // KV, 32):
+                if dec(g, d, int(kv_elt == 2)) != \
+                        common.paged_decode_smem(g, d, kv_elt):
+                    fail(f"paged_decode_smem(G={g}, d={d}) differs from "
+                         "the kernel's")
+            for q_elt in (2, 4):
+                if pre(d, int(q_elt == 2), int(kv_elt == 2)) != \
+                        common.paged_prefill_smem(d, q_elt, kv_elt):
+                    fail(f"paged_prefill_smem(d={d}) differs from the "
+                         "kernel's")
+    log(f"shared memory a CTA at the serving shape: decode "
+        f"{common.paged_decode_smem(H // KV, D, 2)} B, prefill "
+        f"{common.paged_prefill_smem(D, 4, 2)} B (reckonings agree)")
+
+
+def check_repeat(torch, name, fn, got):
+    """A second call on the same inputs must give the same bits."""
+    again = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"{name}: two calls on the same inputs differ")
+
+
 def sdpa_ms(torch, F, q_rot, k_hm, v_hm, mask):
     """One scaled_dot_product_attention call on the pre-rotated query and
     the head-expanded (B, H, S, d) cache view: a yardstick, never called
@@ -273,6 +328,7 @@ def row(err, ms, plain_ms, bound, library_ms):
 
 
 def paged_kernel_phase(torch, F, K, ref, gen, dev, out):
+    reckoning_check(torch)
     # ---------------------------------------------------------- decode
     # the idle row 3 maps no page: its table is all sentinel
     need = [math.ceil(n / PAGE) for n in DECODE_LENGTHS]
@@ -290,6 +346,9 @@ def paged_kernel_phase(torch, F, K, ref, gen, dev, out):
                           got[active], want[active])
         if not torch.all(got[3] == 0):
             fail("paged_decode_attention: a length-0 row must give 0")
+        check_repeat(torch, f"paged_decode_attention[{pool_dtype}]",
+                     lambda: fn(q, k, v, bt, lengths, rope_theta=ROPE_THETA),
+                     got)
         log(f"paged_decode_attention q=float32 pools={pool_dtype}: "
             f"max abs err {err:.3e} (tol {ATOL} + {RTOL}*|plain|)")
         if pool_dtype == torch.bfloat16:
@@ -321,6 +380,9 @@ def paged_kernel_phase(torch, F, K, ref, gen, dev, out):
                                                rope_theta=ROPE_THETA)
         torch.cuda.synchronize()
         err = check_close(f"paged_prefill_attention[{pool_dtype}]", got, want)
+        check_repeat(torch, f"paged_prefill_attention[{pool_dtype}]",
+                     lambda: fn(qc, k, v, bt, start, rope_theta=ROPE_THETA),
+                     got)
         log(f"paged_prefill_attention q=float32 pools={pool_dtype}: "
             f"max abs err {err:.3e} (tol {ATOL} + {RTOL}*|plain|)")
         if pool_dtype == torch.bfloat16:
@@ -336,7 +398,7 @@ def paged_kernel_phase(torch, F, K, ref, gen, dev, out):
                              ref._gather_head_major(v, bt), mask)
             out["paged_prefill_attention"] = row(
                 err, ms, plain_ms,
-                bound_entry(*prefill_bound(PREFILL_STARTS, B * NB * 4)),
+                paged_prefill_bound_entry(PREFILL_STARTS, B * NB * 4),
                 lib_ms)
 
 
@@ -492,12 +554,13 @@ def flash_bwd_bound(sq, skv, causal, elt):
     return byts, 10 * D * pairs, pairs
 
 
-def flash_bound_entry(byts, flops, exps, bf16):
-    """The least time of a flash kernel on the tensor cores: bytes at
-    3.35 TB/s, matrix flops at its route's rate (bf16 when q and k/v are
-    bfloat16, else 3xTF32 — three TF32 products a float32 product), exps
-    at 3.9e12 a second; the largest of the three."""
-    rate = BF16_MMA_FLOPS_PER_S if bf16 else TF32_MMA_FLOPS_PER_S / 3
+def flash_bound_entry(byts, flops, exps, bf16, products=3):
+    """The least time of a kernel on the tensor cores: bytes at 3.35 TB/s,
+    matrix flops at its route's rate (bf16 when q and k/v are bfloat16,
+    else ``products`` TF32 products a float32 product — 3xTF32), exps at
+    3.9e12 a second; the largest of the three."""
+    rate = (BF16_MMA_FLOPS_PER_S if bf16
+            else TF32_MMA_FLOPS_PER_S / products)
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = max(flops / rate, exps / EXP_PER_S) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import functools
+from typing import Callable
 
 import torch
 
@@ -14,6 +15,21 @@ CACHE_DTYPES = (torch.bfloat16, torch.float32)
 MAX_HEAD_DIM = 256
 #: dynamic shared memory a Hopper CTA may use
 MAX_SMEM_BYTES = 232_448
+#: head widths the tensor-core kernels are instantiated for: d is padded to
+#: the least that holds it (csrc/flash_mma.cuh ``dispatch_dp``)
+PADDED_HEAD_DIMS = (32, 64, 96, 128, 160, 256)
+
+
+def _check_heads(name: str, q: torch.Tensor, *, heads: int, kv: int,
+                 d: int) -> None:
+    """Head dim (even, at most MAX_HEAD_DIM, q's equal to the cache's) and
+    GQA grouping (H % KV == 0, H / KV <= 32)."""
+    if q.shape[-1] != d or d % 2 or d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {q.shape[-1]} vs cache {d}; it "
+                         f"must be even and at most {MAX_HEAD_DIM}")
+    if heads % kv or heads // kv > 32:
+        raise ValueError(f"{name}: {heads} query heads over {kv} KV heads "
+                         "(need H % KV == 0 and H / KV <= 32)")
 
 
 def _check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -34,27 +50,30 @@ def _check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
                         f"got {k.dtype}/{v.dtype}")
     if lens.dtype != torch.int32 or not lens.is_contiguous():
         raise TypeError(f"{name}: lengths must be contiguous int32")
-    if q.shape[-1] != d or d % 2 or d > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {q.shape[-1]} vs cache {d}; it "
-                         f"must be even and at most {MAX_HEAD_DIM}")
-    if heads % kv or heads // kv > 32:
-        raise ValueError(f"{name}: {heads} query heads over {kv} KV heads "
-                         "(need H % KV == 0 and H / KV <= 32)")
+    _check_heads(name, q, heads=heads, kv=kv, d=d)
     if q.stride(-1) != 1:
         raise ValueError(f"{name}: q needs unit stride along the head dim")
 
 
 def check_paged_operands(name: str, q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_tables: torch.Tensor,
-                         lens: torch.Tensor, *, heads: int,
-                         batch: int) -> None:
-    """Raise on anything the paged kernels do not take: device, dtype,
-    shape, contiguity. ``heads``/``batch`` are q's H and B."""
+                         lens: torch.Tensor, *, heads: int, batch: int,
+                         smem: Callable[[int, int], int]) -> None:
+    """Raise on anything the paged kernels do not take: shape, shared
+    memory (``smem(G, d)``, the kernel's own reckoning in bytes, against
+    the CTA's budget; checked before the device), device, dtype,
+    contiguity. ``heads``/``batch`` are q's H and B."""
     if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         raise ValueError(f"{name}: pools must be (P, page, KV, d) of one "
                          f"shape, got {tuple(k_pages.shape)}/"
                          f"{tuple(v_pages.shape)}")
     _, page, kv, d = k_pages.shape
+    _check_heads(name, q, heads=heads, kv=kv, d=d)
+    need = smem(heads // kv, d)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: {heads // kv} heads a group at head dim "
+                         f"{d} need {need} bytes of shared memory; a CTA "
+                         f"has {MAX_SMEM_BYTES}")
     _check_attention(name, q, k_pages, v_pages, lens, heads=heads, kv=kv,
                      d=d)
     if block_tables.device != q.device or block_tables.dtype != torch.int32:
@@ -129,6 +148,42 @@ def check_flash_operands(name: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: unit stride along d, and one stride "
                          f"pattern for k and v, got {q.stride()}/"
                          f"{k.stride()}/{v.stride()}")
+
+
+def padded_head_dim(d: int) -> int:
+    """The head width a tensor-core kernel is instantiated for."""
+    return next(dp for dp in PADDED_HEAD_DIMS if d <= dp)
+
+
+def _tile_bytes(rows: int, dp: int, elt: int) -> int:
+    """A staged tile of ``rows`` rows of dp elements, each row padded by 16
+    bytes (csrc/flash_mma.cuh ``pitch``)."""
+    return rows * (dp * elt + 16)
+
+
+def paged_decode_smem(groups: int, d: int, kv_elt: int) -> int:
+    """Dynamic shared memory of one paged-decode CTA (csrc/paged_attention.cuh
+    ``DecodeTiles::smem``): a ring of 4 stages of a 32-position K and V tile
+    (2 where 4 would not leave room for 32 heads), then the rotated query
+    of each of the ``groups`` heads in float32. Independent of the page."""
+    dp = padded_head_dim(d)
+    stage = 2 * _tile_bytes(32, dp, kv_elt)
+    stages = 4 if 4 * stage + 32 * dp * 4 <= MAX_SMEM_BYTES else 2
+    return stages * stage + groups * dp * 4
+
+
+def paged_prefill_smem(d: int, q_elt: int, kv_elt: int) -> int:
+    """Shared memory of one paged-prefill CTA (csrc/paged_attention.cuh
+    ``PrefillTiles``): 64 rotated query rows in q's dtype, 128 RoPE
+    frequencies, 1024 (sin, cos) pairs and 1024 block table entries, then
+    a ring of 4 stages of a 32-position K and V tile (3 or 2 where 4 do not
+    fit). Independent of the page and of G."""
+    dp = padded_head_dim(d)
+    fixed = _tile_bytes(64, dp, q_elt) + 128 * 4 + 1024 * 8 + 1024 * 4
+    stage = 2 * _tile_bytes(32, dp, kv_elt)
+    stages = next((n for n in (4, 3) if fixed + n * stage
+                   <= MAX_SMEM_BYTES), 2)
+    return fixed + stages * stage
 
 
 def check_smem(name: str, nwarps: int, tile: int, d: int) -> None:

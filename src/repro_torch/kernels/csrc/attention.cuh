@@ -1,18 +1,18 @@
-// Device code shared by the serving attention kernels: decode and prefill
-// against the paged pool and against the contiguous per-slot cache. (The
-// full-sequence flash kernels have their own, flash_mma.cuh.)
+// Device code shared by the contiguous-cache serving attention kernels
+// (decode_attention.cu, prefill_attention.cu), and the small helpers every
+// kernel source uses (kNegInf, to_f32, allow_smem, dispatch_dtypes, the C
+// error-string entry). The paged kernels have their own device code since
+// their Hopper redesign (paged_attention.cuh), and the full-sequence flash
+// kernels theirs (flash_mma.cuh).
 //
-// All compute softmax(q k^T / sqrt(d)) v for query rows against a KV cache
-// read in place, in the model's layout, by pointer arithmetic — never
-// through a gathered or transposed copy. The two caches differ only in
-// where a position lives, so the walk is templated on the addressing:
-//
-//   * PagedAddr — a row's positions come in pages of `page` tokens; its
-//     j-th page is block_tables[b, j] of the pool (P, page, KV, d);
-//   * ContiguousAddr — a row's positions lie at a fixed stride in its own
-//     slot of a (B, S, KV, d) cache (any strides, unit along d); tiles of
-//     kContiguousTile positions, the last one cut at S. Nothing at or past
-//     S is read: the serving cache's spare drop position stays unseen.
+// attend computes softmax(q k^T / sqrt(d)) v for query rows against a KV
+// cache read in place, in the model's layout, by pointer arithmetic —
+// never through a gathered or transposed copy. The walk is templated on
+// the addressing; ContiguousAddr is the one instance: a row's positions lie
+// at a fixed stride in its own slot of a (B, S, KV, d) cache (any strides,
+// unit along d); tiles of kContiguousTile positions, the last one cut at S.
+// Nothing at or past S is read: the serving cache's spare drop position
+// stays unseen.
 //
 // One warp owns one query row. The CTA's warps share one (batch row, KV
 // head) and therefore the same tiles: each tile's K and V slabs are staged
@@ -65,19 +65,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Position t of tile j sits at element tile_base(j) + t * stride (element 0
 // of its head vector); count(j) of the tile's `tile` positions exist.
-struct PagedAddr {
-  const int32_t* bt_row;
-  int nb;
-  int tile;  // the page size
-  long long stride;  // KV * d
-  long long head;    // kvh * d
-  __device__ int tiles() const { return nb; }
-  __device__ int count(int) const { return tile; }
-  __device__ long long tile_base(int j) const {
-    return static_cast<long long>(bt_row[j]) * tile * stride + head;
-  }
-};
-
 struct ContiguousAddr {
   long long row;     // b * stride_b + kvh * stride_kv
   long long stride;  // between positions

@@ -9,15 +9,16 @@
 // place through its strides, with no copy and no padding: the last tile is
 // cut at S. One CTA per (b, kv head) walks the row's positions in tiles of
 // 32 with one warp per query head of the GQA group (G = H/KV warps), so
-// the group reads each tile once — the paged decode kernel's walk
-// (attention.cuh) with a contiguous address for each position.
+// the group reads each tile once — the walk of attention.cuh with a
+// contiguous address for each position.
 //
 // Bound: bytes. Per row the kernel must read 2 * length * d cache values
 // per KV head and does 4 * length * d flops per query head — about 2 flops
 // per byte for a bf16 cache at G = 8, far below the card's ridge. Only
 // tiles below the row's length are read. At serving batch sizes the
-// (B, KV) grid fills few of the 132 SMs; splitting the positions across
-// CTAs (split-K with a combine pass) is the next step.
+// (B, KV) grid fills few of the 132 SMs; splitting the positions across a
+// cluster, as paged_attention.cuh does for the paged pool, is the next
+// step.
 //
 // Layouts: q (B, H, d) with row strides (sqb, sqh) in elements and unit
 // stride along d; k/v (B, KV, S, d) with strides (skb, skh, sks) shared by

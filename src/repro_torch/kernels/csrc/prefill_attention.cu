@@ -13,15 +13,16 @@
 // or inactive row near the end of its slot) reads nothing out of range. A
 // CTA of 8 warps takes 8 consecutive rows (one warp per row): the grid is
 // (B, KV, ceil(C*G / 8)) and a CTA stops at the last tile its own rows can
-// see — the paged prefill kernel's walk (attention.cuh) with a contiguous
-// address for each position.
+// see — the walk of attention.cuh with a contiguous address for each
+// position.
 //
 // Bound: bytes at the serving shapes (C = 16, cache <= 256 tokens): per
 // (b, kv head) the kernel must read the positions up to start_len + C once
 // and does 4 * d flops per (row, visible position). The CTAs of one (b, kv
 // head) each stage the same tiles, so the cache is read ceil(C*G/8) times
-// from L2 rather than once; a tensor-core (mma / wgmma) tile over all C*G
-// rows is the step that removes both that and the scalar FMA loop.
+// from L2 rather than once; a tensor-core tile over 64 rows, as
+// paged_attention.cuh has for the paged pool, removes both that and the
+// scalar FMA loop.
 //
 // Layouts: q (B, H, C, d) with strides (sqb, sqh, sqc) in elements and unit
 // stride along d; k/v (B, KV, S, d) with strides (skb, skh, sks) shared by

@@ -1,9 +1,11 @@
 """Paged flash-decode: one query token against the paged KV pool.
 
 Wrapper of the hand-written Hopper kernel ``csrc/paged_decode_attention.cu``
-(the port of ``repro.kernels.paged_decode_attention``). On a CUDA tensor it
-launches the kernel or raises; on a CPU tensor it computes the plain
-version, :func:`repro_torch.kernels.ref.paged_decode_attention_ref`.
+(the port of ``repro.kernels.paged_decode_attention``): one launch, a
+cluster of 8 CTAs per (row, KV head) that split the row's positions and
+combine their partial softmaxes on chip. On a CUDA tensor it launches the
+kernel or raises; on a CPU tensor it computes the plain version,
+:func:`repro_torch.kernels.ref.paged_decode_attention_ref`.
 
 Layout: q (B, H, d); k/v pools (P, page, KV, d) — the MODEL layout, read in
 place; block_tables (B, nb) int32; lengths (B,) int32.
@@ -42,10 +44,11 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.dim() != 3:
         raise ValueError(f"{name}: q must be (B, H, d), got {tuple(q.shape)}")
     b, h, d = q.shape
-    common.check_paged_operands(name, q, k_pages, v_pages, block_tables,
-                                lengths, heads=h, batch=b)
+    common.check_paged_operands(
+        name, q, k_pages, v_pages, block_tables, lengths, heads=h, batch=b,
+        smem=lambda g, dk: common.paged_decode_smem(g, dk,
+                                                    k_pages.element_size()))
     _, page, kv, _ = k_pages.shape
-    common.check_smem(name, h // kv, page, d)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     inv = (common.rope_table(d, float(rope_theta), q.device)
            if rope_theta is not None else None)

@@ -2,9 +2,10 @@
 
 Wrapper of the hand-written Hopper kernel
 ``csrc/paged_prefill_attention.cu`` (the port of
-``repro.kernels.paged_prefill_attention``). On a CUDA tensor it launches
-the kernel or raises; on a CPU tensor it computes the plain version,
-:func:`repro_torch.kernels.ref.paged_prefill_attention_ref`.
+``repro.kernels.paged_prefill_attention``): one launch, 64 query rows of a
+(row, KV head) a CTA, both products on the tensor cores. On a CUDA tensor
+it launches the kernel or raises; on a CPU tensor it computes the plain
+version, :func:`repro_torch.kernels.ref.paged_prefill_attention_ref`.
 
 Layout: q (B, H, C, d) head-major (any strides, unit stride along d);
 k/v pools (P, page, KV, d) — the MODEL layout, read in place; block_tables
@@ -22,9 +23,6 @@ from repro_torch.kernels import common, ref
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3
              + [ctypes.c_void_p] * 6
              + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
-
-#: query rows per CTA in csrc/paged_prefill_attention.cu
-ROWS_PER_CTA = 8
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -48,10 +46,11 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"{name}: q must be (B, H, C, d), got "
                          f"{tuple(q.shape)}")
     b, h, c, d = q.shape
-    common.check_paged_operands(name, q, k_pages, v_pages, block_tables,
-                                start_len, heads=h, batch=b)
+    common.check_paged_operands(
+        name, q, k_pages, v_pages, block_tables, start_len, heads=h, batch=b,
+        smem=lambda g, dk: common.paged_prefill_smem(
+            dk, q.element_size(), k_pages.element_size()))
     _, page, kv, _ = k_pages.shape
-    common.check_smem(name, ROWS_PER_CTA, page, d)
     out = torch.empty((b, h, c, d), dtype=q.dtype, device=q.device)
     inv = (common.rope_table(d, float(rope_theta), q.device)
            if rope_theta is not None else None)

@@ -6,8 +6,11 @@ interpret mode and against ``repro.kernels.ref`` on the same seeded numpy
 inputs: GQA / MQA / MHA, RoPE on and off, garbage in the sentinel page
 and past every row's length, prefill horizons crossing page boundaries.
 Tolerances: 2e-5 in float32, 2e-2 with bfloat16 pools
-(tests/test_kernels.py). The CUDA kernels themselves are held against the
-same plain versions on the card (the ``gpu`` test below, and
+(tests/test_kernels.py). The arithmetic plans of the CUDA kernels (the
+prefill's two TF32 products, the decode's 8-rank combine) are held against
+the plain versions on the CPU, and the wrappers' shared-memory reckoning
+is checked before any launch. The CUDA kernels themselves are held
+against the same plain versions on the card (the ``gpu`` tests below, and
 chip_smoke.py).
 """
 import numpy as np
@@ -204,6 +207,154 @@ def test_kernel_wrappers_reject_bad_operands():
         paged_prefill_attention(q[:, :, None], k, k, bt, ln)
 
 
+def test_shared_memory_reckoning_refuses_before_any_launch(monkeypatch):
+    """The paged wrappers check the new kernels' own shared-memory
+    reckoning (common.paged_decode_smem / paged_prefill_smem) before the
+    device: with the CTA's budget cut below what a launch needs, they raise
+    on meta tensors and launch nothing. With the real budget every operand
+    the wrappers take fits — the page does not enter the reckoning, so a
+    page of 128 at d = 256, which the walk of attention.cuh could not
+    stage, is taken."""
+    from repro_torch.kernels import common
+    for g in (1, 8, 32):
+        for d in range(2, common.MAX_HEAD_DIM + 1, 2):
+            for kv_elt in (2, 4):
+                assert common.paged_decode_smem(g, d, kv_elt) \
+                    <= common.MAX_SMEM_BYTES
+                for q_elt in (2, 4):
+                    assert common.paged_prefill_smem(d, q_elt, kv_elt) \
+                        <= common.MAX_SMEM_BYTES
+    q = torch.empty((1, 8, 256), device="meta")
+    k = torch.empty((2, 128, 1, 256), device="meta")
+    bt = torch.empty((1, 2), dtype=torch.int32, device="meta")
+    ln = torch.empty((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        paged_decode_attention(q, k, k, bt, ln)
+    need = (common.paged_decode_smem(8, 256, 4),
+            common.paged_prefill_smem(256, 4, 4))
+    monkeypatch.setattr(common, "MAX_SMEM_BYTES", min(need) - 1)
+    before = (paged_decode_attention.launches,
+              paged_prefill_attention.launches)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        paged_decode_attention(q, k, k, bt, ln)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        paged_prefill_attention(q[:, :, None], k, k, bt, ln)
+    assert (paged_decode_attention.launches,
+            paged_prefill_attention.launches) == before
+
+
+# the serving shapes of chip_smoke.py: B, H, KV, d, page, nb, C
+SERVING = (4, 32, 4, 64, 16, 16, 16)
+
+
+def _serving_pool(rng, need):
+    """bfloat16 pools at the serving shapes (values exact in float32 and in
+    TF32) with sentinel garbage, as float32 tensors, and the block table."""
+    b, h, kv, d, page, nb, _ = SERVING
+    k, v, bt = _pool(rng, b, kv, d, page, nb, need)
+    k, v = (torch.from_numpy(x).to(torch.bfloat16).float() for x in (k, v))
+    return k, v, torch.from_numpy(bt)
+
+
+def _tf32_products(q_rot, k, v, valid, terms):
+    """softmax(q·kᵀ/√d masked) · v with the tensor-core prefill's products:
+    q (float32) split into TF32 big + small, k and v exact (bfloat16), so
+    q·k = big·k + small·k and P·v = P_big·v + P_small·v (terms = 2), or
+    the big parts alone (terms = 1). q_rot (B, KV, G, C, d); k, v
+    (B, KV, S, d); valid (B, C, S)."""
+    qb, qs = tref.tf32_split(q_rot)
+    logits = torch.einsum("bkgcd,bksd->bkgcs", qb, k)
+    if terms == 2:
+        logits = logits + torch.einsum("bkgcd,bksd->bkgcs", qs, k)
+    logits = logits / np.sqrt(q_rot.shape[-1])
+    logits = torch.where(valid[:, None, None], logits,
+                         torch.tensor(tref.NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    pb, ps = tref.tf32_split(p)
+    o = torch.einsum("bkgcs,bksd->bkgcd", pb, v)
+    if terms == 2:
+        o = o + torch.einsum("bkgcs,bksd->bkgcd", ps, v)
+    return o
+
+
+def _within(got, want, tol=TOL["float32"]):
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+def test_tensor_core_prefill_products_keep_the_float32_tolerance():
+    """The precision plan of the paged prefill kernel (q float32 against a
+    bfloat16 pool, the serving case), on the CPU at the serving shapes:
+    with q split into ref.tf32_split's big and small parts and the
+    bfloat16 keys and values exact in TF32, two TF32 products each for
+    q·kᵀ and P·v stay within 2e-5 + 2e-5·|plain| of
+    ref.paged_prefill_attention_ref; the big parts alone do not, which is
+    why the kernel pays for the second."""
+    b, h, kv, d, page, nb, c = SERVING
+    rng = np.random.default_rng(9)
+    starts = torch.tensor([0, 7, 200, 240], dtype=torch.int32)
+    k, v, bt = _serving_pool(rng, [int(np.ceil((s + c) / page))
+                                   for s in starts.tolist()])
+    q = torch.from_numpy(rng.standard_normal((b, h, c, d))
+                         .astype(np.float32))
+    want = tref.paged_prefill_attention_ref(q, k, v, bt, starts, 1e4)
+    pos = starts[:, None] + torch.arange(c)
+    q_rot = tref.rope_ref(q, pos[:, None, :], 1e4).reshape(
+        b, kv, h // kv, c, d)
+    kg, vg = (tref._gather_head_major(x, bt) for x in (k, v))
+    valid = torch.arange(nb * page)[None, None, :] <= pos[:, :, None]
+    for terms, holds in ((2, True), (1, False)):
+        o = _tf32_products(q_rot, kg, vg, valid, terms).reshape(want.shape)
+        assert _within(o, want) is holds
+
+
+def test_decode_split_plan_keeps_the_float32_tolerance():
+    """The arithmetic plan of the paged decode kernel, on the CPU at the
+    serving shapes: each of 8 ranks takes a contiguous run of the row's
+    32-position tiles, keeps (m, l, acc) over it in float32 (exact
+    products of float32 q and bfloat16 K/V, on the SIMT units), and the
+    output combines the 8 partials in rank order, weighted by exp(m_r - M).
+    It stays within 2e-5 + 2e-5·|plain| of ref.paged_decode_attention_ref
+    on the active rows and gives exactly 0 on a length-0 row, where every
+    rank is empty."""
+    b, h, kv, d, page, nb, _ = SERVING
+    g, split, tile = h // kv, 8, 32
+    rng = np.random.default_rng(10)
+    lengths = torch.tensor([37, 256, 1, 0], dtype=torch.int32)
+    k, v, bt = _serving_pool(rng, [int(np.ceil(n / page))
+                                   for n in lengths.tolist()])
+    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32))
+    want = tref.paged_decode_attention_ref(q, k, v, bt, lengths, 1e4)
+    q_rot = tref.rope_ref(q, (lengths - 1)[:, None], 1e4) / np.sqrt(d)
+    kg, vg = (tref._gather_head_major(x, bt) for x in (k, v))
+    got = torch.zeros_like(q)
+    for i, n in enumerate(lengths.tolist()):
+        ntiles = -(-n // tile)
+        per = -(-ntiles // split)
+        qi = q_rot[i].reshape(kv, g, d)
+        parts = []
+        for r in range(split):
+            lo, hi = r * per * tile, min((r + 1) * per * tile, n)
+            if lo >= hi:
+                parts.append((torch.full((kv, g), tref.NEG_INF),
+                              torch.zeros(kv, g), torch.zeros(kv, g, d)))
+                continue
+            s = torch.einsum("kgd,ksd->kgs", qi, kg[i, :, lo:hi])
+            m = s.max(-1).values
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(-1),
+                          torch.einsum("kgs,ksd->kgd", p, vg[i, :, lo:hi])))
+        mx = torch.stack([m for m, _, _ in parts]).max(0).values
+        lsum = torch.zeros(kv, g)
+        acc = torch.zeros(kv, g, d)
+        for m, l_, a in parts:
+            w = torch.exp(m - mx)
+            lsum = lsum + l_ * w
+            acc = acc + a * w[..., None]
+        got[i] = (acc / lsum.clamp_min(1e-30)[..., None]).reshape(h, d)
+    assert _within(got[:3], want[:3])
+    assert torch.all(got[3] == 0)
+
+
 # ------------------------------------------------------------------ card
 @pytest.fixture
 def cuda_device():
@@ -213,41 +364,101 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
-def test_cuda_kernels_match_plain_versions(cuda_device, pool_dtype):
-    """The hand-written kernels against their plain versions on the card
-    (q float32; sentinel garbage; a length-0 row, which the kernel zeroes
-    and the plain version does not — compared on active rows only)."""
-    b, h, kv, d, page, nb, c = 4, 32, 4, 64, 16, 16, 16
-    rng = np.random.default_rng(4)
-    lengths = np.array([37, 256, 1, 0], np.int32)
-    need = [int(np.ceil(n / page)) for n in lengths]
-    k, v, bt = _pool(rng, b, kv, d, page, nb, need)
-    dev = cuda_device
-    tk = torch.from_numpy(k).to(dev, getattr(torch, pool_dtype))
-    tv = torch.from_numpy(v).to(dev, getattr(torch, pool_dtype))
-    tbt = torch.from_numpy(bt).to(dev)
-    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32))
-    ln = torch.from_numpy(lengths).to(dev)
-    got = paged_decode_attention(q.to(dev), tk, tv, tbt, ln, rope_theta=1e4)
-    want = tref.paged_decode_attention_ref(q.to(dev), tk, tv, tbt, ln, 1e4)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got[:3], want[:3], atol=2e-5, rtol=2e-5)
-    assert torch.all(got[3] == 0)
+# (page, G, d, q dtype, pool dtype, C, positions in the table): every page
+# of 4-32, G of 1-32, d of 16-256, q and pools in both dtypes; the serving
+# shape first; 1280 positions give each of the 8 decode CTAs of a row five
+# 32-position tiles (more than its ring holds) and each prefill CTA 40.
+CARD_CASES = [
+    (16, 8, 64, "float32", "bfloat16", 16, 256),
+    (16, 8, 64, "float32", "float32", 16, 256),
+    (4, 1, 16, "float32", "float32", 7, 300),
+    (8, 4, 80, "bfloat16", "bfloat16", 1, 96),
+    (32, 32, 128, "float32", "bfloat16", 7, 256),
+    (8, 8, 256, "float32", "float32", 16, 200),
+    (4, 4, 256, "bfloat16", "float32", 16, 128),
+    (32, 1, 64, "bfloat16", "bfloat16", 16, 1280),
+    (16, 32, 16, "bfloat16", "bfloat16", 7, 64),
+    (4, 8, 128, "float32", "bfloat16", 1, 1280),
+]
 
-    starts = np.array([0, 7, 200, 240], np.int32)
-    k, v, bt = _pool(rng, b, kv, d, page, nb,
-                     [int(np.ceil((s + c) / page)) for s in starts])
-    tk = torch.from_numpy(k).to(dev, getattr(torch, pool_dtype))
-    tv = torch.from_numpy(v).to(dev, getattr(torch, pool_dtype))
-    tbt = torch.from_numpy(bt).to(dev)
+
+def _card_close(got, want, tol):
+    """|got - want| <= tol + tol·|want| (chip_smoke.py's check)."""
+    err = (got.float() - want.float()).abs()
+    assert torch.isfinite(got.float()).all()
+    assert bool((err <= tol + tol * want.float().abs()).all()), \
+        f"max abs err {err.max().item():.3e} (tol {tol})"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_cuda_kernels_match_plain_versions(cuda_device, case):
+    """The hand-written kernels against their plain versions on the card:
+    sentinel garbage; decode lengths 0, 1, page - 1, page, page + 1 and the
+    full table (a length-0 row, which the kernel zeroes and the plain
+    version does not, is compared with 0); prefill starts whose horizons
+    cross 32-position tiles and pages; q as a strided model-layout view;
+    the same call twice, bitwise equal. Tolerance 2e-5 + 2e-5·|plain|, or
+    2e-2 where the output is bfloat16."""
+    page, g, d, q_dtype, pool_dtype, c, positions = case
+    kv, dev = 2, cuda_device
+    h, nb = g * kv, positions // page
+    tol = TOL[q_dtype]
+    rng = np.random.default_rng(4)
+    pdt, qdt = getattr(torch, pool_dtype), getattr(torch, q_dtype)
+
+    def pools(need):
+        k, v, bt = _pool(rng, len(need), kv, d, page, nb, need)
+        return (torch.from_numpy(k).to(dev, pdt),
+                torch.from_numpy(v).to(dev, pdt), torch.from_numpy(bt).to(dev))
+
+    lengths = np.array([0, 1, page - 1, page, page + 1, nb * page], np.int32)
+    tk, tv, tbt = pools([int(np.ceil(n / page)) for n in lengths])
+    ln = torch.from_numpy(lengths).to(dev)
+    # every other head of a wider tensor: row and head strides of q
+    q = torch.from_numpy(rng.standard_normal((len(lengths), 2 * h, d))
+                         .astype(np.float32)).to(dev, qdt)[:, ::2]
+    got = paged_decode_attention(q, tk, tv, tbt, ln, rope_theta=1e4)
+    again = paged_decode_attention(q, tk, tv, tbt, ln, rope_theta=1e4)
+    want = tref.paged_decode_attention_ref(q, tk, tv, tbt, ln, 1e4)
+    torch.cuda.synchronize()
+    _card_close(got[1:], want[1:], tol)
+    assert torch.all(got[0] == 0)
+    assert torch.equal(got, again)
+
+    starts = np.minimum([0, 30 - c // 2, 63, nb * page - c],
+                        nb * page - c).astype(np.int32)
+    tk, tv, tbt = pools([int(np.ceil((s + c) / page)) for s in starts])
     start = torch.from_numpy(starts).to(dev)
-    qc = torch.randn((b, h, c, d), device=dev)
+    qc = torch.from_numpy(rng.standard_normal((len(starts), c, h, d))
+                          .astype(np.float32)).to(dev, qdt).transpose(1, 2)
     got = paged_prefill_attention(qc, tk, tv, tbt, start, rope_theta=1e4)
+    again = paged_prefill_attention(qc, tk, tv, tbt, start, rope_theta=1e4)
     want = tref.paged_prefill_attention_ref(qc, tk, tv, tbt, start, 1e4)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    _card_close(got, want, tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_shared_memory_reckoning_matches_the_kernels(cuda_device):
+    """common's reckoning of the paged kernels' shared memory is the one
+    the launches use (the C entries beside each kernel)."""
+    from repro_torch.kernels import build, common
+    dec = build.load("paged_decode_attention").paged_decode_attention_smem
+    pre = build.load("paged_prefill_attention").paged_prefill_attention_smem
+    for fn in (dec, pre):
+        fn.argtypes = [build.ctypes.c_int] * 3
+        fn.restype = build.ctypes.c_longlong
+    for d in (16, 64, 80, 128, 160, 256):
+        for kv_elt in (2, 4):
+            for g in (1, 8, 32):
+                assert dec(g, d, int(kv_elt == 2)) == \
+                    common.paged_decode_smem(g, d, kv_elt)
+            for q_elt in (2, 4):
+                assert pre(d, int(q_elt == 2), int(kv_elt == 2)) == \
+                    common.paged_prefill_smem(d, q_elt, kv_elt)
 
 
 def test_build_names_libraries_by_sources_and_flags(monkeypatch, tmp_path):
@@ -261,6 +472,9 @@ def test_build_names_libraries_by_sources_and_flags(monkeypatch, tmp_path):
                                "paged_prefill_attention",
                                "prefill_attention", "rmsnorm",
                                "ssd_chunk_scan"]
+    # every header is hashed into every library's name
+    assert sorted(p.name for p in build.CSRC.glob("*.cuh")) == [
+        "attention.cuh", "flash_mma.cuh", "paged_attention.cuh"]
     a = build.library_path("paged_decode_attention")
     assert a == build.library_path("paged_decode_attention")
     assert a != build.library_path("paged_prefill_attention")
