@@ -8,15 +8,20 @@ directory that .gitignore lists, e.g. chip_check/). Each tree runs in its
 own process, in the order parent, change, change, parent, so that drift of
 the card or the host shows as a difference between the two runs of one
 tree. Each process, with that tree's own code (its chip_smoke.py phase
-functions): builds the four serving attention kernels, holds the paged and
-contiguous ones against their plain versions and times them at the serving
-shapes (phase 3), serves the paged tinyllama-1.1b trace with exact launch
-counts (phase 4: TTFT, TPOT), and profiles a paged decode step and prefill
-chunk (host wall, device busy). Needs one card; exits nonzero if any
-process fails.
+functions): builds the four serving attention kernels and the flash
+forward, holds the paged and contiguous ones against their plain versions
+and times them at the serving shapes (phase 3), and the contiguous decode
+at the whole-prompt shape (this tree's ``whole_prompt_decode_row`` on that
+tree's kernel), serves the paged and the contiguous tinyllama-1.1b trace
+with exact launch counts (phase 4: TTFT, TPOT), profiles a paged decode
+step and prefill chunk (host wall, device busy), and runs the whole-prompt
+prefill and its 16 decode steps (this tree's phase 5 on that tree's code:
+the decode step's median, the prefill and a decode step profiled). Needs
+one card; exits nonzero if any process fails.
 """
 from __future__ import annotations
 
+import importlib.util
 import subprocess
 import sys
 import time
@@ -39,7 +44,7 @@ def one(root: str) -> None:
     resolve_device("cuda")
     t0 = time.monotonic()
     build.build(["paged_decode_attention", "paged_prefill_attention",
-                 "decode_attention", "prefill_attention"])
+                 "decode_attention", "prefill_attention", "flash_attention"])
     print(f"{tag} built in {time.monotonic() - t0:.1f}s", flush=True)
     K = cs.wrappers()
     dev = torch.device("cuda")
@@ -47,6 +52,10 @@ def one(root: str) -> None:
     gen = torch.Generator(device=dev).manual_seed(1234)
     cs.paged_kernel_phase(torch, F, K, ref, gen, dev, out)
     cs.contiguous_kernel_phase(torch, F, K, ref, gen, dev, out)
+    here = _this_smoke()
+    if here.WHOLE_PROMPT_ROW not in out:      # a tree from before the row
+        out[here.WHOLE_PROMPT_ROW] = here.whole_prompt_decode_row(
+            torch, F, K["decode_attention"], ref, gen, dev)
     for name, r in out.items():
         print(f"{tag} {name}: kernel {r['ms']:.6f} ms | sdpa "
               f"{r['library_ms']:.6f} ms", flush=True)
@@ -63,6 +72,19 @@ def one(root: str) -> None:
         "prefill chunk": lambda: model.prefill_chunk_paged(
             params, cache, tokc, ln, bt, act, None),
     }, n=20)
+    del engine, model, params, cache
+    cs.serve_phase(torch, serve, K, "contiguous tinyllama-1.1b")
+    torch.cuda.empty_cache()
+    here.prefill_phase(torch, K)
+
+
+def _this_smoke():
+    """This tree's chip_smoke.py, whatever tree the process imports from."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_ab",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main(argv: list[str]) -> None:

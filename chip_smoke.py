@@ -20,10 +20,14 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                 (the cluster combines run in a fixed order), and the
                 wrappers' shared-memory reckoning against the kernels';
               * contiguous decode / prefill (the same widths, a 256-position
-                slot): decode lengths 37/256/1/0, prefill starts
+                slot; the same bodies, paged_attention.cuh, over a strided
+                addressing): decode lengths 37/256/1/0, prefill starts
                 0/7/200/240, the model-layout cache read in place through
                 its strides with garbage in the drop position and past
-                every length;
+                every length; each called twice, bitwise equal, and the
+                reckonings checked; the decode again at the whole-prompt
+                path's shape (4 rows of 2,048 tokens in a 2,065-position
+                bfloat16 cache), timed beside SDPA;
               * the SSD chunk scan at mamba2-1.3b's widths (64 heads of 64,
                 state 128), 4 chunks of Q = 16, 13, 1 and 256;
               * full-sequence flash attention at the training and
@@ -48,11 +52,11 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               chunk. Bound: the larger of bytes / 3.35 TB/s and float32
               flops / 67 TFLOP/s (the SIMT rate the other kernels run at);
               for the kernels that run their products on the tensor cores
-              (the two flash kernels, the paged prefill), the largest of
+              (the two flash kernels, both prefills), the largest of
               bytes / 3.35 TB/s, matrix flops at the rate of their route —
               989 TFLOP/s bf16, 494.7 / 3 TFLOP/s for 3xTF32, the card's
               float32-accurate tensor-core route, 494.7 / 2 for q float32
-              against a bfloat16 pool (bfloat16 is exact in TF32: two
+              against a bfloat16 cache (bfloat16 is exact in TF32: two
               products) — and one exp a visible pair / 3.9e12 (the
               special-function units): a bound at the SIMT rate would be
               beaten by a tensor-core kernel, which no bound may allow.
@@ -267,23 +271,29 @@ def bound_entry(byts, flops):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def paged_prefill_bound_entry(starts, table_bytes):
-    """The paged prefill's least time on the tensor cores: q float32
-    against a bfloat16 pool forms each product as two TF32 products (a
-    bfloat16 value is exact in TF32), so its matrix flops run at 494.7 / 2
-    TFLOP/s; one exp a visible pair and head."""
+def prefill_bound_entry(starts, table_bytes):
+    """The prefill's least time on the tensor cores (paged or contiguous):
+    q float32 against a bfloat16 cache forms each product as two TF32
+    products (a bfloat16 value is exact in TF32), so its matrix flops run
+    at 494.7 / 2 TFLOP/s; one exp a visible pair and head."""
     byts, flops = prefill_bound(starts, table_bytes)
     return flash_bound_entry(byts, flops, H * prefill_pairs(starts), False,
                              products=2)
 
 
-def reckoning_check(torch):
-    """The wrappers' shared-memory reckoning (common.paged_decode_smem,
-    paged_prefill_smem) against the kernels' own (the C entries beside
-    them), at the serving shape and the extremes of G, d and the dtypes."""
+def reckoning_check(torch, layout):
+    """The wrappers' shared-memory reckoning (common.decode_smem, and
+    paged_prefill_smem or prefill_smem) against the kernels' own (the C
+    entries beside them), at the serving shape and the extremes of G, d and
+    the dtypes; ``layout`` "paged" or "contiguous"."""
     from repro_torch.kernels import build, common
-    dec = build.load("paged_decode_attention").paged_decode_attention_smem
-    pre = build.load("paged_prefill_attention").paged_prefill_attention_smem
+    prefix = "paged_" if layout == "paged" else ""
+    dec = getattr(build.load(f"{prefix}decode_attention"),
+                  f"{prefix}decode_attention_smem")
+    pre = getattr(build.load(f"{prefix}prefill_attention"),
+                  f"{prefix}prefill_attention_smem")
+    pre_smem = (common.paged_prefill_smem if layout == "paged"
+                else common.prefill_smem)
     for fn in (dec, pre):
         fn.argtypes = [build.ctypes.c_int] * 3
         fn.restype = build.ctypes.c_longlong
@@ -291,17 +301,17 @@ def reckoning_check(torch):
         for kv_elt in (2, 4):
             for g in (1, H // KV, 32):
                 if dec(g, d, int(kv_elt == 2)) != \
-                        common.paged_decode_smem(g, d, kv_elt):
-                    fail(f"paged_decode_smem(G={g}, d={d}) differs from "
+                        common.decode_smem(g, d, kv_elt):
+                    fail(f"{layout} decode_smem(G={g}, d={d}) differs from "
                          "the kernel's")
             for q_elt in (2, 4):
                 if pre(d, int(q_elt == 2), int(kv_elt == 2)) != \
-                        common.paged_prefill_smem(d, q_elt, kv_elt):
-                    fail(f"paged_prefill_smem(d={d}) differs from the "
+                        pre_smem(d, q_elt, kv_elt):
+                    fail(f"{pre_smem.__name__}(d={d}) differs from the "
                          "kernel's")
-    log(f"shared memory a CTA at the serving shape: decode "
-        f"{common.paged_decode_smem(H // KV, D, 2)} B, prefill "
-        f"{common.paged_prefill_smem(D, 4, 2)} B (reckonings agree)")
+    log(f"{layout}: shared memory a CTA at the serving shape: decode "
+        f"{common.decode_smem(H // KV, D, 2)} B, prefill "
+        f"{pre_smem(D, 4, 2)} B (reckonings agree)")
 
 
 def check_repeat(torch, name, fn, got):
@@ -328,7 +338,7 @@ def row(err, ms, plain_ms, bound, library_ms):
 
 
 def paged_kernel_phase(torch, F, K, ref, gen, dev, out):
-    reckoning_check(torch)
+    reckoning_check(torch, "paged")
     # ---------------------------------------------------------- decode
     # the idle row 3 maps no page: its table is all sentinel
     need = [math.ceil(n / PAGE) for n in DECODE_LENGTHS]
@@ -398,11 +408,12 @@ def paged_kernel_phase(torch, F, K, ref, gen, dev, out):
                              ref._gather_head_major(v, bt), mask)
             out["paged_prefill_attention"] = row(
                 err, ms, plain_ms,
-                paged_prefill_bound_entry(PREFILL_STARTS, B * NB * 4),
+                prefill_bound_entry(PREFILL_STARTS, B * NB * 4),
                 lib_ms)
 
 
 def contiguous_kernel_phase(torch, F, K, ref, gen, dev, out):
+    reckoning_check(torch, "contiguous")
     # ---------------------------------------------------------- decode
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
     q = torch.randn((B, H, D), generator=gen, device=dev)
@@ -418,6 +429,9 @@ def contiguous_kernel_phase(torch, F, K, ref, gen, dev, out):
                           want[active])
         if not torch.all(got[3] == 0):
             fail("decode_attention: a length-0 row must give 0")
+        check_repeat(torch, f"decode_attention[{cache_dtype}]",
+                     lambda: fn(q, k, v, lengths, rope_theta=ROPE_THETA),
+                     got)
         log(f"decode_attention q=float32 cache={cache_dtype}: max abs err "
             f"{err:.3e} (tol {ATOL} + {RTOL}*|plain|)")
         if cache_dtype == torch.bfloat16:
@@ -432,6 +446,8 @@ def contiguous_kernel_phase(torch, F, K, ref, gen, dev, out):
             out["decode_attention"] = row(
                 err, ms, plain_ms,
                 bound_entry(*decode_bound(DECODE_LENGTHS, 0)), lib_ms)
+    out[WHOLE_PROMPT_ROW] = whole_prompt_decode_row(
+        torch, F, fn, ref, gen, dev)
 
     # --------------------------------------------------------- prefill
     start = torch.tensor(PREFILL_STARTS, dtype=torch.int32, device=dev)
@@ -445,6 +461,9 @@ def contiguous_kernel_phase(torch, F, K, ref, gen, dev, out):
                                          rope_theta=ROPE_THETA)
         torch.cuda.synchronize()
         err = check_close(f"prefill_attention[{cache_dtype}]", got, want)
+        check_repeat(torch, f"prefill_attention[{cache_dtype}]",
+                     lambda: fn(qc, k, v, start, rope_theta=ROPE_THETA),
+                     got)
         log(f"prefill_attention q=float32 cache={cache_dtype}: max abs err "
             f"{err:.3e} (tol {ATOL} + {RTOL}*|plain|)")
         if cache_dtype == torch.bfloat16:
@@ -458,8 +477,48 @@ def contiguous_kernel_phase(torch, F, K, ref, gen, dev, out):
                     <= pos[:, :, None])[:, None]
             lib_ms = sdpa_ms(torch, F, qr, k, v, mask)
             out["prefill_attention"] = row(
-                err, ms, plain_ms,
-                bound_entry(*prefill_bound(PREFILL_STARTS, 0)), lib_ms)
+                err, ms, plain_ms, prefill_bound_entry(PREFILL_STARTS, 0),
+                lib_ms)
+
+
+#: the log's name of decode_attention's second timed row (not a kernel of
+#: the kernels line: the same kernel at the whole-prompt path's shape)
+WHOLE_PROMPT_ROW = "decode_attention (whole prompt)"
+
+
+def whole_prompt_decode_row(torch, F, fn, ref, gen, dev):
+    """The contiguous decode kernel ``fn`` at the shape of phase 5's decode
+    steps: B rows holding a PREFILL_S-token prompt in the bfloat16 cache
+    that make_prefill_step returns, (B, PREFILL_S + DECODE_STEPS + 1, KV, d)
+    with its drop position, read over all but that position (garbage past
+    each row's length). Checked against the plain version and repeated
+    bitwise, then timed beside the plain version and SDPA; chip_ab.py runs
+    it on both trees it compares."""
+    s = PREFILL_S + DECODE_STEPS
+    lengths = [PREFILL_S] * B
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    k = torch.randn((B, s + 1, KV, D), generator=gen, device=dev)
+    v = torch.randn((B, s + 1, KV, D), generator=gen, device=dev)
+    k[:, PREFILL_S:], v[:, PREFILL_S:] = 50.0, -50.0
+    k, v = (x.to(torch.bfloat16)[:, :s].transpose(1, 2) for x in (k, v))
+    call = (lambda: fn(q, k, v, ln, rope_theta=ROPE_THETA))
+    got = call()
+    want = ref.decode_attention_ref(q, k, v, ln, rope_theta=ROPE_THETA)
+    torch.cuda.synchronize()
+    what = f"decode_attention[B={B} S={s} lengths {PREFILL_S}]"
+    err = check_close(what, got, want)
+    check_repeat(torch, what, call, got)
+    ms = timed_ms(torch, call)
+    plain_ms = timed_ms(torch, lambda: ref.decode_attention_ref(
+        q, k, v, ln, rope_theta=ROPE_THETA))
+    qr = ref.rope_ref(q, (ln - 1)[:, None], ROPE_THETA)
+    mask = (torch.arange(s, device=dev)[None, :]
+            < ln[:, None])[:, None, None, :]
+    lib_ms = sdpa_ms(torch, F, qr[:, :, None], k, v, mask)
+    log(f"{what}: max abs err {err:.3e} (tol {ATOL} + {RTOL}*|plain|)")
+    return row(err, ms, plain_ms, bound_entry(*decode_bound(lengths, 0)),
+               lib_ms)
 
 
 def ssd_inputs(torch, gen, dev, q):
@@ -1075,7 +1134,8 @@ def prefill_phase(torch, K):
     """make_prefill_step on B x 2048 prompt tokens at full width, then 16
     greedy decode steps on the cache it returns (the contiguous decode
     kernel): one warm-up run, then the measured run between zero_counts
-    and the count check."""
+    and the count check; then the prefill and the last decode step
+    profiled."""
     from repro_torch.training.train_step import (make_prefill_step,
                                                  make_serve_step)
     model, params = tinyllama(torch)
@@ -1110,24 +1170,28 @@ def prefill_phase(torch, K):
             steps.append(time.monotonic() - t0)
         if not torch.isfinite(lg).all():
             fail("decode after prefill: non-finite logits")
-        return t_prefill, steps
+        return t_prefill, steps, cache, tok, lengths + DECODE_STEPS - 1
 
     run()
     zero_counts(K)
-    t_prefill, steps = run()
+    t_prefill, steps, cache, tok, last = run()
     counts = check_launches(K, "prefill + decode", {
         "flash_attention": cfg.num_layers,
         "decode_attention": cfg.num_layers * DECODE_STEPS})
     profile_dispatches(torch, "tinyllama-1.1b", {
         f"prefill ({B} x {PREFILL_S} tokens)":
             lambda: prefill_step(params, {"tokens": tokens})}, n=3)
+    # the last step again (it rewrites the position it wrote)
+    profile_dispatches(torch, "tinyllama-1.1b", {
+        f"decode step ({B} rows of {PREFILL_S + DECODE_STEPS - 1} cached "
+        "tokens)": lambda: serve_step(params, cache, tok, last)})
     steps.sort()
     log(f"prefill + decode (tinyllama-1.1b, B={B}, {PREFILL_S}-token "
         f"prompts, float32 weights): prefill {t_prefill:.4f} s "
         f"({B * PREFILL_S / t_prefill:.0f} prompt tokens/s); decode step "
         f"median {steps[len(steps) // 2] * 1e3:.2f} ms, max "
         f"{steps[-1] * 1e3:.2f} ms")
-    del params
+    del params, cache
     torch.cuda.empty_cache()
     return counts
 

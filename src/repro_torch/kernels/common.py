@@ -11,7 +11,8 @@ from repro_torch.models.layers import rope_freqs
 
 Q_DTYPES = (torch.float32, torch.bfloat16)
 CACHE_DTYPES = (torch.bfloat16, torch.float32)
-#: per-lane accumulator registers in csrc/attention.cuh
+#: the widest head the kernels are instantiated for (csrc/flash_mma.cuh
+#: ``dispatch_dp``)
 MAX_HEAD_DIM = 256
 #: dynamic shared memory a Hopper CTA may use
 MAX_SMEM_BYTES = 232_448
@@ -55,6 +56,19 @@ def _check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: q needs unit stride along the head dim")
 
 
+def _check_smem(name: str, q: torch.Tensor, *, heads: int, kv: int, d: int,
+                smem: Callable[[int, int], int]) -> None:
+    """Head dim and grouping, then ``smem(G, d)`` — the kernel's own
+    reckoning of a CTA's shared memory, in bytes — against the CTA's
+    budget."""
+    _check_heads(name, q, heads=heads, kv=kv, d=d)
+    need = smem(heads // kv, d)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: {heads // kv} heads a group at head dim "
+                         f"{d} need {need} bytes of shared memory; a CTA "
+                         f"has {MAX_SMEM_BYTES}")
+
+
 def check_paged_operands(name: str, q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_tables: torch.Tensor,
                          lens: torch.Tensor, *, heads: int, batch: int,
@@ -68,12 +82,7 @@ def check_paged_operands(name: str, q: torch.Tensor, k_pages: torch.Tensor,
                          f"shape, got {tuple(k_pages.shape)}/"
                          f"{tuple(v_pages.shape)}")
     _, page, kv, d = k_pages.shape
-    _check_heads(name, q, heads=heads, kv=kv, d=d)
-    need = smem(heads // kv, d)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: {heads // kv} heads a group at head dim "
-                         f"{d} need {need} bytes of shared memory; a CTA "
-                         f"has {MAX_SMEM_BYTES}")
+    _check_smem(name, q, heads=heads, kv=kv, d=d, smem=smem)
     _check_attention(name, q, k_pages, v_pages, lens, heads=heads, kv=kv,
                      d=d)
     if block_tables.device != q.device or block_tables.dtype != torch.int32:
@@ -91,16 +100,18 @@ def check_paged_operands(name: str, q: torch.Tensor, k_pages: torch.Tensor,
 
 def check_cache_operands(name: str, q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, lens: torch.Tensor, *, heads: int,
-                         batch: int) -> None:
-    """Raise on anything the contiguous-cache kernels do not take. k/v are
-    (B, KV, S, d) views with any strides but one per axis shared by both
-    and unit stride along d — the model's (B, S, KV, d) cache seen
-    head-major, read in place."""
+                         batch: int, smem: Callable[[int, int], int]) -> None:
+    """Raise on anything the contiguous-cache kernels do not take: shape,
+    shared memory (``smem(G, d)``, as for the paged kernels; checked before
+    the device), device, dtype, strides. k/v are (B, KV, S, d) views with
+    any strides but one per axis shared by both and unit stride along d —
+    the model's (B, S, KV, d) cache seen head-major, read in place."""
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != batch:
         raise ValueError(f"{name}: caches must be (B, KV, S, d) of one "
                          f"shape with B = {batch}, got {tuple(k.shape)}/"
                          f"{tuple(v.shape)}")
     _, kv, s, d = k.shape
+    _check_smem(name, q, heads=heads, kv=kv, d=d, smem=smem)
     _check_attention(name, q, k, v, lens, heads=heads, kv=kv, d=d)
     if lens.shape != (batch,):
         raise ValueError(f"{name}: lengths {tuple(lens.shape)} vs batch "
@@ -161,39 +172,42 @@ def _tile_bytes(rows: int, dp: int, elt: int) -> int:
     return rows * (dp * elt + 16)
 
 
-def paged_decode_smem(groups: int, d: int, kv_elt: int) -> int:
-    """Dynamic shared memory of one paged-decode CTA (csrc/paged_attention.cuh
-    ``DecodeTiles::smem``): a ring of 4 stages of a 32-position K and V tile
-    (2 where 4 would not leave room for 32 heads), then the rotated query
-    of each of the ``groups`` heads in float32. Independent of the page."""
+def decode_smem(groups: int, d: int, kv_elt: int) -> int:
+    """Dynamic shared memory of one decode CTA, paged or contiguous
+    (csrc/paged_attention.cuh ``DecodeTiles::smem``): a ring of 4 stages of
+    a 32-position K and V tile (2 where 4 would not leave room for 32
+    heads), then the rotated query of each of the ``groups`` heads in
+    float32. Independent of the page and of the cache's length."""
     dp = padded_head_dim(d)
     stage = 2 * _tile_bytes(32, dp, kv_elt)
     stages = 4 if 4 * stage + 32 * dp * 4 <= MAX_SMEM_BYTES else 2
     return stages * stage + groups * dp * 4
 
 
-def paged_prefill_smem(d: int, q_elt: int, kv_elt: int) -> int:
-    """Shared memory of one paged-prefill CTA (csrc/paged_attention.cuh
-    ``PrefillTiles``): 64 rotated query rows in q's dtype, 128 RoPE
-    frequencies, 1024 (sin, cos) pairs and 1024 block table entries, then
+#: the paged prefill's block table staged in static shared memory
+#: (csrc/paged_attention.cuh ``kTableCache`` int32 entries)
+TABLE_CACHE_BYTES = 1024 * 4
+
+
+def prefill_smem(d: int, q_elt: int, kv_elt: int) -> int:
+    """Dynamic shared memory of one prefill CTA, paged or contiguous
+    (csrc/paged_attention.cuh ``PrefillTiles::kSmem``): 64 rotated query
+    rows in q's dtype, 128 RoPE frequencies and 1024 (sin, cos) pairs, then
     a ring of 4 stages of a 32-position K and V tile (3 or 2 where 4 do not
-    fit). Independent of the page and of G."""
+    fit beside the rest and the block table). Independent of G, the page
+    and the cache's length."""
     dp = padded_head_dim(d)
-    fixed = _tile_bytes(64, dp, q_elt) + 128 * 4 + 1024 * 8 + 1024 * 4
+    fixed = _tile_bytes(64, dp, q_elt) + 128 * 4 + 1024 * 8
     stage = 2 * _tile_bytes(32, dp, kv_elt)
-    stages = next((n for n in (4, 3) if fixed + n * stage
-                   <= MAX_SMEM_BYTES), 2)
+    stages = next((n for n in (4, 3) if fixed + TABLE_CACHE_BYTES
+                   + n * stage <= MAX_SMEM_BYTES), 2)
     return fixed + stages * stage
 
 
-def check_smem(name: str, nwarps: int, tile: int, d: int) -> None:
-    """The CTA stages one K and one V tile plus a row per warp in shared
-    memory (csrc/attention.cuh ``smem_floats``)."""
-    need = 4 * (2 * tile * (d + 1) + nwarps * (d + tile))
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: tile {tile} x head dim {d} needs {need} "
-                         f"bytes of shared memory; a CTA has "
-                         f"{MAX_SMEM_BYTES}")
+def paged_prefill_smem(d: int, q_elt: int, kv_elt: int) -> int:
+    """Shared memory of one paged-prefill CTA: :func:`prefill_smem` and
+    the block table staged beside it."""
+    return prefill_smem(d, q_elt, kv_elt) + TABLE_CACHE_BYTES
 
 
 @functools.lru_cache(maxsize=16)

@@ -1,11 +1,13 @@
-// Device code of the serving attention kernels redesigned for Hopper:
-// decode split across a thread-block cluster, and chunk prefill on the
-// tensor cores. Both read the KV cache in place, in the model's layout,
-// through an addressing functor `rows` — rows(p) is the element offset of
-// position p's head vector (d contiguous values) in the K and V arrays —
-// so one body serves any cache layout. PagedRows below is the paged pool's.
+// Device code of the serving attention kernels on Hopper: decode split
+// across a thread-block cluster, and chunk prefill on the tensor cores.
+// Both read the KV cache in place, in the model's layout, through an
+// addressing functor `rows` — rows(p) is the element offset of position
+// p's head vector (d contiguous values) in the K and V arrays — so one body
+// serves every cache layout: PagedRows is the paged pool's
+// (paged_decode_attention.cu, paged_prefill_attention.cu), StridedRows the
+// contiguous cache's (decode_attention.cu, prefill_attention.cu).
 //
-// Contracts carried over from the JAX package (as in attention.cuh):
+// Contracts carried over from the JAX package:
 //   * fused RoPE in float32, split halves, q rotated at the row's position;
 //     1/sqrt(d) applied to the logits;
 //   * a row at position qpos attends positions <= qpos (decode: < length);
@@ -73,6 +75,18 @@ struct PagedRows {
     const int j = p / page;
     return (static_cast<long long>(bt_row[j]) * page + (p - j * page)) *
                stride + head;
+  }
+};
+
+// Position p of one (batch row, KV head) of the contiguous cache, seen as
+// (B, KV, S, d) with any strides (unit along d): row = b·skb + kvh·skh,
+// stride = sks. The launcher clips every horizon to S, so the spare drop
+// position at S and everything past it stay unread.
+struct StridedRows {
+  long long row;
+  long long stride;
+  __device__ __forceinline__ long long operator()(int p) const {
+    return row + static_cast<long long>(p) * stride;
   }
 };
 
@@ -266,7 +280,8 @@ __device__ __forceinline__ float2 load2(const float* p) {
 // this CTA's share being cluster rank cluster_rank() of kSplit.
 //   q      — head 0 of the group (d values, unit stride); head g at g·sqh
 //   out    — G rows of d values, contiguous
-//   len    — positions to attend, clipped to the table: [0, len)
+//   len    — positions to attend, clipped to those the addressing holds:
+//            [0, len)
 //   qpos   — the RoPE position (length - 1)
 //   cb     — the copy width for k/v rows (flash::copy_bytes)
 template <typename TQ, typename TKV, int DP, typename Rows>
@@ -418,7 +433,9 @@ constexpr int kPrefillThreads = 128;
 // the 132 SMs in one wave (of 8, two CTAs an SM would not all fit at once)
 constexpr int kPrefillSplit = 4;
 // entries of an addressing's lookup table a CTA may stage in static shared
-// memory (the paged block table; 4 KB)
+// memory (the paged block table; 4 KB). The ring's depth below is chosen
+// with it reserved for every instance; the contiguous cache's, which stages
+// no table, loses no stage to it at any head width the wrappers take.
 constexpr int kTableCache = 1024;
 // (sin, cos) pairs of the RoPE angles of a CTA's distinct positions
 constexpr int kRopePairs = 1024;
@@ -460,7 +477,7 @@ struct PrefillTiles {
 //           g·sqh + c·sqc (unit stride along d)
 //   out   — (G, C, d) contiguous: head g, token c at (g·C + c)·d
 //   start — the chunk's first position; row r sits at start + r/G
-//   lim   — positions the addressing holds (nb · page)
+//   lim   — positions the addressing holds (nb · page; S when contiguous)
 //   cbq   — the copy width for q rows, cb for k/v rows (flash::copy_bytes)
 template <typename TQ, typename TKV, int DP, typename Rows>
 __device__ void prefill_rows(const TQ* __restrict__ q, long long sqh,
@@ -730,6 +747,62 @@ __device__ void prefill_rows(const TQ* __restrict__ q, long long sqh,
           ox * inv, oy * inv);
   }
   cluster_sync();  // no CTA leaves while another reads its partials
+}
+
+// ---------------------------------------------------------------- launches
+// kernel(p) on `grid` in clusters of (1, 1, cz) CTAs of `threads` threads
+// and `smem` bytes of dynamic shared memory, through cudaLaunchKernelEx;
+// returns the launch's own status.
+template <typename Kernel, typename P>
+inline cudaError_t launch_clusters(Kernel kernel, dim3 grid, int threads,
+                                   size_t smem, int cz, cudaStream_t stream,
+                                   const P& p) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cz;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, p);
+}
+
+// The dynamic shared memory of a decode CTA for G query heads a KV head,
+// head dim D and the cache bfloat16 (1) or float32 (0): what the decode
+// launchers' C entries report (common.decode_smem mirrors it).
+inline long long decode_smem(int G, int D, int kv_bf16) {
+  long long bytes = 0;
+  flash::dispatch_dp(D, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    bytes = static_cast<long long>(kv_bf16 ? DecodeTiles<bf16, DP>::smem(G)
+                                           : DecodeTiles<float, DP>::smem(G));
+  });
+  return bytes;
+}
+
+template <int DP>
+struct PrefillSmemOf {
+  long long* bytes;
+  template <typename TQ, typename TKV>
+  void run() const {
+    *bytes = static_cast<long long>(PrefillTiles<TQ, TKV, DP>::kSmem);
+  }
+};
+
+// The dynamic shared memory of a prefill CTA for head dim D and q and the
+// cache bfloat16 (1) or float32 (0) (common.prefill_smem mirrors it).
+inline long long prefill_smem(int D, int q_bf16, int kv_bf16) {
+  long long bytes = 0;
+  flash::dispatch_dp(D, [&](auto dp) {
+    repro_attn::dispatch_dtypes(q_bf16, kv_bf16,
+                                PrefillSmemOf<decltype(dp)::value>{&bytes});
+  });
+  return bytes;
 }
 
 }  // namespace paged_attn

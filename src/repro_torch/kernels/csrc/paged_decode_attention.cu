@@ -76,19 +76,8 @@ struct Launcher {
       const size_t smem = DecodeTiles<TKV, DP>::smem(G);
       auto kernel = paged_decode_kernel<TQ, TKV, DP>;
       flash::allow_smem(kernel, smem);
-      cudaLaunchAttribute attr[1];
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = 1;
-      attr[0].val.clusterDim.y = 1;
-      attr[0].val.clusterDim.z = kSplit;
-      cudaLaunchConfig_t cfg = {};
-      cfg.gridDim = dim3(B, p.KV, kSplit);
-      cfg.blockDim = dim3(32 * G);
-      cfg.dynamicSmemBytes = smem;
-      cfg.stream = stream;
-      cfg.attrs = attr;
-      cfg.numAttrs = 1;
-      *status = cudaLaunchKernelEx(&cfg, kernel, p);
+      *status = paged_attn::launch_clusters(kernel, dim3(B, p.KV, kSplit),
+                                            32 * G, smem, kSplit, stream, p);
     });
   }
 };
@@ -117,15 +106,7 @@ extern "C" int paged_decode_attention(
   return static_cast<int>(status != cudaSuccess ? status : last);
 }
 
-// The dynamic shared memory of one CTA for G query heads a KV head, head
-// dim D and the pool's dtype (common.paged_decode_smem mirrors it).
+// The dynamic shared memory of one CTA (paged_attn::decode_smem).
 extern "C" long long paged_decode_attention_smem(int G, int D, int kv_bf16) {
-  long long bytes = 0;
-  flash::dispatch_dp(D, [&](auto dp) {
-    constexpr int DP = decltype(dp)::value;
-    bytes = static_cast<long long>(
-        kv_bf16 ? DecodeTiles<flash::bf16, DP>::smem(G)
-                : DecodeTiles<float, DP>::smem(G));
-  });
-  return bytes;
+  return paged_attn::decode_smem(G, D, kv_bf16);
 }

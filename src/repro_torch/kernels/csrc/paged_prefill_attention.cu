@@ -21,7 +21,7 @@
 // and does 4 * d flops per (row, visible position): about 1.6 MB and 63
 // MFLOP, 0.47 us of bytes — below a launch, so latency decides. One CTA
 // stages each tile for 64 rows (a warp a row would stage it for 8, and
-// attention.cuh's walk converts it to float32 first), a CTA's copies are
+// as a float32 copy), a CTA's copies are
 // all issued at once, the longest horizon is split four ways, and the
 // products run on the tensor cores (two TF32 MMAs a product for q float32
 // against a bfloat16 pool).
@@ -98,30 +98,10 @@ struct Launcher {
                            static_cast<int>(smem));
       const int G = p.H / p.KV;
       const int blocks = (p.C * G + kPrefillRows - 1) / kPrefillRows;
-      cudaLaunchAttribute attr[1];
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = 1;
-      attr[0].val.clusterDim.y = 1;
-      attr[0].val.clusterDim.z = kPrefillSplit;
-      cudaLaunchConfig_t cfg = {};
-      cfg.gridDim = dim3(B, p.KV, blocks * kPrefillSplit);
-      cfg.blockDim = dim3(kPrefillThreads);
-      cfg.dynamicSmemBytes = smem;
-      cfg.stream = stream;
-      cfg.attrs = attr;
-      cfg.numAttrs = 1;
-      *status = cudaLaunchKernelEx(&cfg, kernel, p);
+      *status = paged_attn::launch_clusters(
+          kernel, dim3(B, p.KV, blocks * kPrefillSplit), kPrefillThreads,
+          smem, kPrefillSplit, stream, p);
     });
-  }
-};
-
-template <int DP>
-struct SmemOf {
-  long long* bytes;
-  template <typename TQ, typename TKV>
-  void run() const {
-    *bytes = static_cast<long long>(PrefillTiles<TQ, TKV, DP>::kSmem +
-                                    kTableCache * sizeof(int32_t));
   }
 };
 
@@ -151,15 +131,10 @@ extern "C" int paged_prefill_attention(
   return static_cast<int>(status != cudaSuccess ? status : last);
 }
 
-// The shared memory of one CTA (dynamic, and the static table cache) for
-// head dim D and the dtypes of q and the pool (common.paged_prefill_smem
-// mirrors it).
+// The shared memory of one CTA: the dynamic (paged_attn::prefill_smem)
+// and the static table cache (common.paged_prefill_smem mirrors it).
 extern "C" long long paged_prefill_attention_smem(int D, int q_bf16,
                                                   int kv_bf16) {
-  long long bytes = 0;
-  flash::dispatch_dp(D, [&](auto dp) {
-    repro_attn::dispatch_dtypes(q_bf16, kv_bf16,
-                                SmemOf<decltype(dp)::value>{&bytes});
-  });
-  return bytes;
+  return paged_attn::prefill_smem(D, q_bf16, kv_bf16) +
+         static_cast<long long>(kTableCache * sizeof(int32_t));
 }

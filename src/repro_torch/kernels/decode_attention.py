@@ -1,8 +1,11 @@
 """Flash-decode against the contiguous KV cache: one query token per row.
 
 Wrapper of the hand-written Hopper kernel ``csrc/decode_attention.cu`` (the
-port of ``repro.kernels.decode_attention``). On a CUDA tensor it launches
-the kernel or raises; on a CPU tensor it computes the plain version,
+port of ``repro.kernels.decode_attention``): one launch, a cluster of 8
+CTAs per (row, KV head) that split the row's positions and combine their
+partial softmaxes on chip (``csrc/paged_attention.cuh``, the paged
+decode's body over a strided addressing). On a CUDA tensor it launches the
+kernel or raises; on a CPU tensor it computes the plain version,
 :func:`repro_torch.kernels.ref.decode_attention_ref`.
 
 Layout: q (B, H, d); k/v (B, KV, S, d) head-major as in the JAX kernel,
@@ -23,9 +26,6 @@ _ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
              + [ctypes.c_void_p] * 3
              + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
 
-#: cache positions per staged tile in csrc/attention.cuh (kContiguousTile)
-TILE = 32
-
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *,
@@ -45,9 +45,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 3:
         raise ValueError(f"{name}: q must be (B, H, d), got {tuple(q.shape)}")
     b, h, d = q.shape
-    common.check_cache_operands(name, q, k, v, lengths, heads=h, batch=b)
+    common.check_cache_operands(
+        name, q, k, v, lengths, heads=h, batch=b,
+        smem=lambda g, dk: common.decode_smem(g, dk, k.element_size()))
     kv, s = k.shape[1], k.shape[2]
-    common.check_smem(name, h // kv, TILE, d)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     inv = (common.rope_table(d, float(rope_theta), q.device)
            if rope_theta is not None else None)

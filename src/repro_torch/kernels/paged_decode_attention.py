@@ -46,8 +46,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     b, h, d = q.shape
     common.check_paged_operands(
         name, q, k_pages, v_pages, block_tables, lengths, heads=h, batch=b,
-        smem=lambda g, dk: common.paged_decode_smem(g, dk,
-                                                    k_pages.element_size()))
+        smem=lambda g, dk: common.decode_smem(g, dk, k_pages.element_size()))
     _, page, kv, _ = k_pages.shape
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     inv = (common.rope_table(d, float(rope_theta), q.device)

@@ -1,9 +1,12 @@
 """Prefill-chunk attention against the contiguous KV cache.
 
 Wrapper of the hand-written Hopper kernel ``csrc/prefill_attention.cu``
-(the port of ``repro.kernels.prefill_attention``). On a CUDA tensor it
-launches the kernel or raises; on a CPU tensor it computes the plain
-version, :func:`repro_torch.kernels.ref.prefill_attention_ref`.
+(the port of ``repro.kernels.prefill_attention``): one launch, 64 query
+rows of a (row, KV head) a CTA, both products on the tensor cores
+(``csrc/paged_attention.cuh``, the paged prefill's body over a strided
+addressing). On a CUDA tensor it launches the kernel or raises; on a CPU
+tensor it computes the plain version,
+:func:`repro_torch.kernels.ref.prefill_attention_ref`.
 
 Layout: q (B, H, C, d) head-major (any strides, unit along d); k/v
 (B, KV, S, d) head-major views of the model's (B, S, KV, d) cache, read in
@@ -17,15 +20,11 @@ import math
 import torch
 
 from repro_torch.kernels import common, ref
-from repro_torch.kernels.decode_attention import TILE
 
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3
              + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3
              + [ctypes.c_void_p] * 3
              + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
-
-#: query rows per CTA in csrc/prefill_attention.cu
-ROWS_PER_CTA = 8
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -46,9 +45,11 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: q must be (B, H, C, d), got "
                          f"{tuple(q.shape)}")
     b, h, c, d = q.shape
-    common.check_cache_operands(name, q, k, v, start_len, heads=h, batch=b)
+    common.check_cache_operands(
+        name, q, k, v, start_len, heads=h, batch=b,
+        smem=lambda g, dk: common.prefill_smem(dk, q.element_size(),
+                                               k.element_size()))
     kv, s = k.shape[1], k.shape[2]
-    common.check_smem(name, ROWS_PER_CTA, TILE, d)
     out = torch.empty((b, h, c, d), dtype=q.dtype, device=q.device)
     inv = (common.rope_table(d, float(rope_theta), q.device)
            if rope_theta is not None else None)

@@ -309,35 +309,89 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
-def test_cuda_contiguous_kernels_match_plain_versions(cuda_device,
-                                                      cache_dtype):
-    """The hand-written kernels against their plain versions on the card,
-    at the serving shapes, reading the model-layout cache in place (the
-    drop position and everything past a row's length hold garbage; a
-    length-0 row, which the kernel zeroes, is compared on active rows
-    only)."""
-    b, h, kv, d, s, c = 4, 32, 4, 64, 256, 16
-    rng = np.random.default_rng(4)
-    lengths = np.array([37, 256, 1, 0], np.int32)
-    _, (tk, tv) = _caches(rng, b, s, kv, d, lengths, cache_dtype)
-    dev = cuda_device
-    tk, tv = tk.to(dev), tv.to(dev)
-    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32))
-    ln = torch.from_numpy(lengths).to(dev)
-    got = decode_attention(q.to(dev), tk, tv, ln, rope_theta=1e4)
-    want = tref.decode_attention_ref(q.to(dev), tk, tv, ln, 1e4)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got[:3], want[:3], atol=2e-5, rtol=2e-5)
-    assert torch.all(got[3] == 0)
+# (G, d, q dtype, cache dtype, C, S, odd): G of 1-32, d of 16-256, q and
+# caches in both dtypes, chunks of 1, 7 and 16, slots of 256, 300 and
+# 2,065 positions (the whole-prompt path's: 65 decode tiles, 9 a rank of
+# the cluster, the last rank 2); the serving shape first. ``odd`` reads the
+# cache and the chunk's q through views whose base and strides are one
+# element off 16 bytes (the last d of d + 1 columns): copies of 4 bytes
+# in float32, of 2 in bfloat16.
+CARD_CASES = [
+    (8, 64, "float32", "bfloat16", 16, 256, False),
+    (8, 64, "float32", "float32", 16, 256, False),
+    (8, 64, "float32", "bfloat16", 1, 2065, False),
+    (1, 18, "float32", "float32", 7, 300, True),
+    (1, 18, "bfloat16", "bfloat16", 7, 300, True),
+    (4, 80, "bfloat16", "float32", 1, 300, False),
+    (32, 128, "float32", "bfloat16", 7, 256, False),
+    (2, 256, "float32", "float32", 16, 2065, False),
+    (16, 16, "bfloat16", "bfloat16", 16, 2065, True),
+    (4, 160, "bfloat16", "bfloat16", 16, 256, False),
+]
 
-    starts = np.array([0, 7, 200, 240], np.int32)
-    _, (tk, tv) = _caches(rng, b, s, kv, d, starts + c, cache_dtype)
-    tk, tv = tk.to(dev), tv.to(dev)
+
+def _card_caches(rng, b, s, kv, d, filled, dtype, odd, dev):
+    """Model-layout caches (B, S + 1, KV, d) on the card, garbage from
+    position ``filled[i]`` of row i on (the drop position at S included),
+    as the head-major views of their first S positions that the kernels
+    read in place; with ``odd`` each is the last d columns of a
+    (B, S + 1, KV, d + 1) tensor."""
+    w = d + 1 if odd else d
+    k = rng.standard_normal((b, s + 1, kv, w)).astype(np.float32)
+    v = rng.standard_normal((b, s + 1, kv, w)).astype(np.float32)
+    for i, n in enumerate(filled):
+        k[i, n:], v[i, n:] = GARBAGE, -GARBAGE
+    return tuple(torch.from_numpy(x).to(dev, getattr(torch, dtype))
+                 [..., w - d:][:, :s].transpose(1, 2) for x in (k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_cuda_contiguous_kernels_match_plain_versions(cuda_device, case):
+    """The hand-written kernels against their plain versions on the card,
+    reading the model-layout cache in place through its strides: garbage
+    in the drop position and past every row's length; decode lengths 0, 1,
+    31, 32, 33 and S (a length-0 row, which the kernel zeroes and the plain
+    version does not, is compared with 0); prefill starts whose horizons
+    cross 32-position tiles, and two chunks that run past S (their rows
+    clipped there); q as a strided model-layout view; the same call twice,
+    bitwise equal. Tolerance 2e-5 + 2e-5·|plain|, or 2e-2 where the output
+    is bfloat16."""
+    g, d, q_dtype, cache_dtype, c, s, odd = case
+    kv, dev = 2, cuda_device
+    h = g * kv
+    tol = TOL[q_dtype]
+    qdt = getattr(torch, q_dtype)
+    rng = np.random.default_rng(4)
+    w = d + 1 if odd else d
+
+    lengths = np.array([0, 1, 31, 32, 33, s], np.int32)
+    tk, tv = _card_caches(rng, len(lengths), s, kv, d, lengths, cache_dtype,
+                          odd, dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    # every other head of a wider tensor: row and head strides of q
+    q = torch.from_numpy(rng.standard_normal((len(lengths), 2 * h, d))
+                         .astype(np.float32)).to(dev, qdt)[:, ::2]
+    got = decode_attention(q, tk, tv, ln, rope_theta=1e4)
+    again = decode_attention(q, tk, tv, ln, rope_theta=1e4)
+    want = tref.decode_attention_ref(q, tk, tv, ln, 1e4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[1:], want[1:], atol=tol, rtol=tol)
+    assert torch.all(got[0] == 0)
+    assert torch.equal(got, again)
+
+    starts = np.array([0, 30 - c // 2, 63, s - c, s - c // 2, s],
+                      np.int32)
+    tk, tv = _card_caches(rng, len(starts), s, kv, d,
+                          np.minimum(starts + c, s), cache_dtype, odd, dev)
     start = torch.from_numpy(starts).to(dev)
-    qc = torch.randn((b, c, h, d), device=dev).transpose(1, 2)
+    qc = torch.from_numpy(rng.standard_normal((len(starts), c, h, w))
+                          .astype(np.float32)).to(dev, qdt)[..., w - d:]
+    qc = qc.transpose(1, 2)
     got = prefill_attention(qc, tk, tv, start, rope_theta=1e4)
+    again = prefill_attention(qc, tk, tv, start, rope_theta=1e4)
     want = tref.prefill_attention_ref(qc, tk, tv, start, 1e4)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    assert torch.equal(got, again)

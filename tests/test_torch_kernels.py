@@ -6,10 +6,12 @@ interpret mode and against ``repro.kernels.ref`` on the same seeded numpy
 inputs: GQA / MQA / MHA, RoPE on and off, garbage in the sentinel page
 and past every row's length, prefill horizons crossing page boundaries.
 Tolerances: 2e-5 in float32, 2e-2 with bfloat16 pools
-(tests/test_kernels.py). The arithmetic plans of the CUDA kernels (the
-prefill's two TF32 products, the decode's 8-rank combine) are held against
-the plain versions on the CPU, and the wrappers' shared-memory reckoning
-is checked before any launch. The CUDA kernels themselves are held
+(tests/test_kernels.py). The arithmetic plans of the CUDA kernels that
+paged_attention.cuh gives both cache layouts (the prefill's two or three
+TF32 products, the decode's 8-rank combine) are held against the plain
+versions on the CPU, paged and contiguous, and every serving wrapper's
+shared-memory reckoning is checked before any launch. The paged CUDA
+kernels themselves are held
 against the same plain versions on the card (the ``gpu`` tests below, and
 chip_smoke.py).
 """
@@ -26,10 +28,14 @@ from repro.kernels.paged_prefill_attention import \
     paged_prefill_attention as pallas_prefill  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.decode_attention import \
+    decode_attention  # noqa: E402
 from repro_torch.kernels.paged_decode_attention import \
     paged_decode_attention  # noqa: E402
 from repro_torch.kernels.paged_prefill_attention import \
     paged_prefill_attention  # noqa: E402
+from repro_torch.kernels.prefill_attention import \
+    prefill_attention  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 
 torch.set_num_threads(2)
@@ -207,40 +213,56 @@ def test_kernel_wrappers_reject_bad_operands():
         paged_prefill_attention(q[:, :, None], k, k, bt, ln)
 
 
-def test_shared_memory_reckoning_refuses_before_any_launch(monkeypatch):
-    """The paged wrappers check the new kernels' own shared-memory
-    reckoning (common.paged_decode_smem / paged_prefill_smem) before the
-    device: with the CTA's budget cut below what a launch needs, they raise
-    on meta tensors and launch nothing. With the real budget every operand
-    the wrappers take fits — the page does not enter the reckoning, so a
-    page of 128 at d = 256, which the walk of attention.cuh could not
-    stage, is taken."""
+#: each serving wrapper, and its kernel's reckoning of a CTA's shared
+#: memory at G = 8, d = 256, q and cache float32
+SMEM_WRAPPERS = {
+    "paged_decode_attention": (
+        paged_decode_attention, lambda c: c.decode_smem(8, 256, 4)),
+    "paged_prefill_attention": (
+        paged_prefill_attention, lambda c: c.paged_prefill_smem(256, 4, 4)),
+    "decode_attention": (decode_attention, lambda c: c.decode_smem(8, 256, 4)),
+    "prefill_attention": (
+        prefill_attention, lambda c: c.prefill_smem(256, 4, 4)),
+}
+
+
+@pytest.mark.parametrize("name", SMEM_WRAPPERS)
+def test_shared_memory_reckoning_refuses_before_any_launch(monkeypatch,
+                                                           name):
+    """Each serving wrapper checks its kernel's own shared-memory reckoning
+    (common.decode_smem, prefill_smem, paged_prefill_smem) before the
+    device: with the CTA's budget cut below what a launch needs, it raises
+    on meta tensors and launches nothing. With the real budget every
+    operand the wrappers take fits — neither the page nor the cache's
+    length enters the reckoning, so a page of 128 or a 4096-position cache
+    at d = 256 is taken."""
     from repro_torch.kernels import common
     for g in (1, 8, 32):
         for d in range(2, common.MAX_HEAD_DIM + 1, 2):
             for kv_elt in (2, 4):
-                assert common.paged_decode_smem(g, d, kv_elt) \
+                assert common.decode_smem(g, d, kv_elt) \
                     <= common.MAX_SMEM_BYTES
                 for q_elt in (2, 4):
                     assert common.paged_prefill_smem(d, q_elt, kv_elt) \
                         <= common.MAX_SMEM_BYTES
+    fn, reckoning = SMEM_WRAPPERS[name]
     q = torch.empty((1, 8, 256), device="meta")
-    k = torch.empty((2, 128, 1, 256), device="meta")
-    bt = torch.empty((1, 2), dtype=torch.int32, device="meta")
     ln = torch.empty((1,), dtype=torch.int32, device="meta")
+    if name.startswith("paged"):
+        k = torch.empty((2, 128, 1, 256), device="meta")
+        rest = (torch.empty((1, 2), dtype=torch.int32, device="meta"), ln)
+    else:
+        k = torch.empty((1, 1, 4096, 256), device="meta")
+        rest = (ln,)
+    if "prefill" in name:
+        q = q[:, :, None]
     with pytest.raises(ValueError, match="CPU or a CUDA"):
-        paged_decode_attention(q, k, k, bt, ln)
-    need = (common.paged_decode_smem(8, 256, 4),
-            common.paged_prefill_smem(256, 4, 4))
-    monkeypatch.setattr(common, "MAX_SMEM_BYTES", min(need) - 1)
-    before = (paged_decode_attention.launches,
-              paged_prefill_attention.launches)
+        fn(q, k, k, *rest)
+    monkeypatch.setattr(common, "MAX_SMEM_BYTES", reckoning(common) - 1)
+    before = fn.launches
     with pytest.raises(ValueError, match="bytes of shared memory"):
-        paged_decode_attention(q, k, k, bt, ln)
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        paged_prefill_attention(q[:, :, None], k, k, bt, ln)
-    assert (paged_decode_attention.launches,
-            paged_prefill_attention.launches) == before
+        fn(q, k, k, *rest)
+    assert fn.launches == before
 
 
 # the serving shapes of chip_smoke.py: B, H, KV, d, page, nb, C
@@ -256,24 +278,52 @@ def _serving_pool(rng, need):
     return k, v, torch.from_numpy(bt)
 
 
-def _tf32_products(q_rot, k, v, valid, terms):
-    """softmax(q·kᵀ/√d masked) · v with the tensor-core prefill's products:
-    q (float32) split into TF32 big + small, k and v exact (bfloat16), so
-    q·k = big·k + small·k and P·v = P_big·v + P_small·v (terms = 2), or
-    the big parts alone (terms = 1). q_rot (B, KV, G, C, d); k, v
-    (B, KV, S, d); valid (B, C, S)."""
+def _plan_cache(rng, layout, s, filled, cache_dtype):
+    """K/V at the serving widths, head-major (B, KV, S, d) as float32
+    tensors, and the plain version's view of them: the paged pool through
+    its block table (S = nb·page, bfloat16 values), or the contiguous
+    model-layout cache (B, S + 1, KV, d) in ``cache_dtype`` with garbage in
+    the drop position and past ``filled[i]`` of row i."""
+    b, h, kv, d, page, nb, _ = SERVING
+    if layout == "paged":
+        k, v, bt = _serving_pool(rng, [int(np.ceil(n / page))
+                                       for n in filled])
+        view = (k, v, bt)
+        return tuple(tref._gather_head_major(x, bt) for x in (k, v)), view
+    k = rng.standard_normal((b, s + 1, kv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s + 1, kv, d)).astype(np.float32)
+    for i, n in enumerate(filled):
+        k[i, n:], v[i, n:] = GARBAGE, -GARBAGE
+    k, v = (torch.from_numpy(x).to(getattr(torch, cache_dtype)).float()
+            [:, :s].transpose(1, 2) for x in (k, v))
+    return (k, v), (k, v)
+
+
+def _tf32_products(q_rot, k, v, valid, products):
+    """softmax(q·kᵀ/√d masked) · v with the tensor-core prefill's products,
+    each float32 operand split into ref.tf32_split's big + small: q·k as
+    big·big (products = 1), + q_small·k_big (2: exact where the cache is
+    bfloat16, whose small part is 0), + q_big·k_small (3: a float32
+    cache); P·v the same with P for q and v for k. q_rot (B, KV, G, C, d);
+    k, v (B, KV, S, d); valid (B, C, S)."""
     qb, qs = tref.tf32_split(q_rot)
-    logits = torch.einsum("bkgcd,bksd->bkgcs", qb, k)
-    if terms == 2:
-        logits = logits + torch.einsum("bkgcd,bksd->bkgcs", qs, k)
+    kb, ks = tref.tf32_split(k)
+    logits = torch.einsum("bkgcd,bksd->bkgcs", qb, kb)
+    if products >= 2:
+        logits = logits + torch.einsum("bkgcd,bksd->bkgcs", qs, kb)
+    if products == 3:
+        logits = logits + torch.einsum("bkgcd,bksd->bkgcs", qb, ks)
     logits = logits / np.sqrt(q_rot.shape[-1])
     logits = torch.where(valid[:, None, None], logits,
                          torch.tensor(tref.NEG_INF))
     p = torch.softmax(logits, dim=-1)
     pb, ps = tref.tf32_split(p)
-    o = torch.einsum("bkgcs,bksd->bkgcd", pb, v)
-    if terms == 2:
-        o = o + torch.einsum("bkgcs,bksd->bkgcd", ps, v)
+    vb, vs = tref.tf32_split(v)
+    o = torch.einsum("bkgcs,bksd->bkgcd", pb, vb)
+    if products >= 2:
+        o = o + torch.einsum("bkgcs,bksd->bkgcd", ps, vb)
+    if products == 3:
+        o = o + torch.einsum("bkgcs,bksd->bkgcd", pb, vs)
     return o
 
 
@@ -281,55 +331,86 @@ def _within(got, want, tol=TOL["float32"]):
     return bool(((got - want).abs() <= tol + tol * want.abs()).all())
 
 
-def test_tensor_core_prefill_products_keep_the_float32_tolerance():
-    """The precision plan of the paged prefill kernel (q float32 against a
-    bfloat16 pool, the serving case), on the CPU at the serving shapes:
-    with q split into ref.tf32_split's big and small parts and the
-    bfloat16 keys and values exact in TF32, two TF32 products each for
-    q·kᵀ and P·v stay within 2e-5 + 2e-5·|plain| of
-    ref.paged_prefill_attention_ref; the big parts alone do not, which is
-    why the kernel pays for the second."""
-    b, h, kv, d, page, nb, c = SERVING
+# (layout, cache dtype, positions S, chunk starts, the products a float32
+# product takes): the paged serving case (q float32, bfloat16 pool: two),
+# and the contiguous cache in float32 (three), its last row's chunk running
+# past S so that its horizons are clipped there
+PREFILL_PLANS = [
+    ("paged", "bfloat16", 256, [0, 7, 200, 240], 2),
+    ("contiguous", "float32", 256, [0, 7, 200, 248], 3),
+]
+
+
+@pytest.mark.parametrize("plan", PREFILL_PLANS, ids=lambda p: p[0])
+def test_tensor_core_prefill_products_keep_the_float32_tolerance(plan):
+    """The precision plan of the tensor-core prefill kernels (q float32),
+    on the CPU at the serving shapes: with q, and a float32 cache, split
+    into ref.tf32_split's big and small parts (a bfloat16 cache is exact in
+    TF32), the kernel's two or three TF32 products each for q·kᵀ and P·v
+    stay within 2e-5 + 2e-5·|plain| of the plain version; the big parts
+    alone do not, which is why the kernel pays for the rest."""
+    layout, cache_dtype, s, starts, products = plan
+    b, h, kv, d, _, _, c = SERVING
     rng = np.random.default_rng(9)
-    starts = torch.tensor([0, 7, 200, 240], dtype=torch.int32)
-    k, v, bt = _serving_pool(rng, [int(np.ceil((s + c) / page))
-                                   for s in starts.tolist()])
+    starts = torch.tensor(starts, dtype=torch.int32)
+    (kg, vg), view = _plan_cache(rng, layout, s,
+                                 [min(x + c, s) for x in starts.tolist()],
+                                 cache_dtype)
     q = torch.from_numpy(rng.standard_normal((b, h, c, d))
                          .astype(np.float32))
-    want = tref.paged_prefill_attention_ref(q, k, v, bt, starts, 1e4)
+    if layout == "paged":
+        want = tref.paged_prefill_attention_ref(q, *view, starts, 1e4)
+    else:
+        want = tref.prefill_attention_ref(q, *view, starts, 1e4)
     pos = starts[:, None] + torch.arange(c)
+    assert (pos.max() >= s) == (layout == "contiguous")
     q_rot = tref.rope_ref(q, pos[:, None, :], 1e4).reshape(
         b, kv, h // kv, c, d)
-    kg, vg = (tref._gather_head_major(x, bt) for x in (k, v))
-    valid = torch.arange(nb * page)[None, None, :] <= pos[:, :, None]
-    for terms, holds in ((2, True), (1, False)):
-        o = _tf32_products(q_rot, kg, vg, valid, terms).reshape(want.shape)
+    valid = torch.arange(s)[None, None, :] <= pos[:, :, None]
+    for n, holds in ((products, True), (1, False)):
+        o = _tf32_products(q_rot, kg, vg, valid, n).reshape(want.shape)
         assert _within(o, want) is holds
 
 
-def test_decode_split_plan_keeps_the_float32_tolerance():
-    """The arithmetic plan of the paged decode kernel, on the CPU at the
-    serving shapes: each of 8 ranks takes a contiguous run of the row's
+# (layout, positions S, lengths): the paged serving table, and the
+# contiguous cache of the whole-prompt path, 2,065 positions — 65 tiles,
+# 9 a rank, the last rank 2
+DECODE_PLANS = [
+    ("paged", 256, [37, 256, 1, 0]),
+    ("contiguous", 2065, [2065, 2048, 33, 0]),
+]
+
+
+@pytest.mark.parametrize("plan", DECODE_PLANS, ids=lambda p: p[0])
+def test_decode_split_plan_keeps_the_float32_tolerance(plan):
+    """The arithmetic plan of the decode kernels, on the CPU at the serving
+    widths: each of 8 ranks takes a contiguous run of the row's
     32-position tiles, keeps (m, l, acc) over it in float32 (exact
     products of float32 q and bfloat16 K/V, on the SIMT units), and the
     output combines the 8 partials in rank order, weighted by exp(m_r - M).
-    It stays within 2e-5 + 2e-5·|plain| of ref.paged_decode_attention_ref
-    on the active rows and gives exactly 0 on a length-0 row, where every
-    rank is empty."""
-    b, h, kv, d, page, nb, _ = SERVING
+    It stays within 2e-5 + 2e-5·|plain| of the plain version on the active
+    rows and gives exactly 0 on a length-0 row, where every rank is
+    empty."""
+    layout, s, lengths = plan
+    b, h, kv, d, _, _, _ = SERVING
     g, split, tile = h // kv, 8, 32
     rng = np.random.default_rng(10)
-    lengths = torch.tensor([37, 256, 1, 0], dtype=torch.int32)
-    k, v, bt = _serving_pool(rng, [int(np.ceil(n / page))
-                                   for n in lengths.tolist()])
+    lengths = torch.tensor(lengths, dtype=torch.int32)
+    (kg, vg), view = _plan_cache(rng, layout, s, lengths.tolist(),
+                                 "bfloat16")
     q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32))
-    want = tref.paged_decode_attention_ref(q, k, v, bt, lengths, 1e4)
+    if layout == "paged":
+        want = tref.paged_decode_attention_ref(q, *view, lengths, 1e4)
+    else:
+        want = tref.decode_attention_ref(q, *view, lengths, 1e4)
     q_rot = tref.rope_ref(q, (lengths - 1)[:, None], 1e4) / np.sqrt(d)
-    kg, vg = (tref._gather_head_major(x, bt) for x in (k, v))
     got = torch.zeros_like(q)
     for i, n in enumerate(lengths.tolist()):
         ntiles = -(-n // tile)
         per = -(-ntiles // split)
+        if n == 2065:
+            assert [max(0, min(per, ntiles - r * per))
+                    for r in range(split)] == [9] * 7 + [2]
         qi = q_rot[i].reshape(kv, g, d)
         parts = []
         for r in range(split):
@@ -338,9 +419,9 @@ def test_decode_split_plan_keeps_the_float32_tolerance():
                 parts.append((torch.full((kv, g), tref.NEG_INF),
                               torch.zeros(kv, g), torch.zeros(kv, g, d)))
                 continue
-            s = torch.einsum("kgd,ksd->kgs", qi, kg[i, :, lo:hi])
-            m = s.max(-1).values
-            p = torch.exp(s - m[..., None])
+            s_ = torch.einsum("kgd,ksd->kgs", qi, kg[i, :, lo:hi])
+            m = s_.max(-1).values
+            p = torch.exp(s_ - m[..., None])
             parts.append((m, p.sum(-1),
                           torch.einsum("kgs,ksd->kgd", p, vg[i, :, lo:hi])))
         mx = torch.stack([m for m, _, _ in parts]).max(0).values
@@ -443,22 +524,29 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case):
 
 @pytest.mark.gpu
 def test_shared_memory_reckoning_matches_the_kernels(cuda_device):
-    """common's reckoning of the paged kernels' shared memory is the one
-    the launches use (the C entries beside each kernel)."""
+    """common's reckoning of the serving kernels' shared memory is the one
+    the launches use (the C entries beside each kernel), paged and
+    contiguous."""
     from repro_torch.kernels import build, common
-    dec = build.load("paged_decode_attention").paged_decode_attention_smem
-    pre = build.load("paged_prefill_attention").paged_prefill_attention_smem
-    for fn in (dec, pre):
+    dec = {n: getattr(build.load(n), f"{n}_smem")
+           for n in ("paged_decode_attention", "decode_attention")}
+    pre = {n: getattr(build.load(n), f"{n}_smem")
+           for n in ("paged_prefill_attention", "prefill_attention")}
+    for fn in (*dec.values(), *pre.values()):
         fn.argtypes = [build.ctypes.c_int] * 3
         fn.restype = build.ctypes.c_longlong
     for d in (16, 64, 80, 128, 160, 256):
         for kv_elt in (2, 4):
             for g in (1, 8, 32):
-                assert dec(g, d, int(kv_elt == 2)) == \
-                    common.paged_decode_smem(g, d, kv_elt)
+                for fn in dec.values():
+                    assert fn(g, d, int(kv_elt == 2)) == \
+                        common.decode_smem(g, d, kv_elt)
             for q_elt in (2, 4):
-                assert pre(d, int(q_elt == 2), int(kv_elt == 2)) == \
+                args = (d, int(q_elt == 2), int(kv_elt == 2))
+                assert pre["paged_prefill_attention"](*args) == \
                     common.paged_prefill_smem(d, q_elt, kv_elt)
+                assert pre["prefill_attention"](*args) == \
+                    common.prefill_smem(d, q_elt, kv_elt)
 
 
 def test_build_names_libraries_by_sources_and_flags(monkeypatch, tmp_path):
