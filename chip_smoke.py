@@ -29,7 +29,12 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                 path's shape (4 rows of 2,048 tokens in a 2,065-position
                 bfloat16 cache), timed beside SDPA;
               * the SSD chunk scan at mamba2-1.3b's widths (64 heads of 64,
-                state 128), 4 chunks of Q = 16, 13, 1 and 256;
+                state 128), 4 chunks of Q = 16, 13, 1 and 256, and at 14
+                more cases (SSD_CASES: Q 1-256, M 1/2/4/9, H 1/3/5/64, P x
+                N 16 x 16, 64 x 128 and odd or ragged widths, operands 4
+                bytes off 16, a steep decay at Q = 256); each
+                called twice, bitwise equal; the wrapper's shared-memory
+                reckoning against the kernel's; timed at Q = 16 and 256;
               * full-sequence flash attention at the training and
                 prefill shapes (B = 4, H = 32, KV = 4, d = 64): S = 2048
                 and 1024 causal in float32 and bfloat16, a ragged S = 1000,
@@ -37,8 +42,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                 forward's log-sum-exp; the backward kernel's dq, dk, dv at
                 S = 1024 (float32, bfloat16; both timed), and the autograd
                 wrapper's against torch.autograd of the plain forward;
-              * RMSNorm over 4096 and 4095 rows of 2048, float32 and
-                bfloat16;
+              * RMSNorm at D 1, 7, 2047, 2048, 8192 and 20000 (every
+                variant and copy width), R 1, 4095 and 4096, both dtypes,
+                rows aligned and 1 element off; each called twice, bitwise
+                equal; timed at 4096 x 2048 in float32 and bfloat16;
               serving attention in q float32 with caches bfloat16 (the
               serving dtypes) and float32. Tolerance: 2e-5 absolute + 2e-5
               relative (both sides compute in float32 on identical inputs;
@@ -48,11 +55,12 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               yardstick only: the port never calls it):
               scaled_dot_product_attention on the pre-rotated,
               head-expanded view (forward + backward for the backward
-              kernel), F.rms_norm; no single PyTorch call computes the SSD
-              chunk. Bound: the larger of bytes / 3.35 TB/s and float32
-              flops / 67 TFLOP/s (the SIMT rate the other kernels run at);
+              kernel), F.rms_norm (with the weight in x's dtype); no single
+              PyTorch call computes the SSD chunk. Bound: the larger of
+              bytes / 3.35 TB/s and float32 flops / 67 TFLOP/s (the SIMT
+              rate the other kernels run at);
               for the kernels that run their products on the tensor cores
-              (the two flash kernels, both prefills), the largest of
+              (the two flash kernels, both prefills, the SSD), the largest of
               bytes / 3.35 TB/s, matrix flops at the rate of their route —
               989 TFLOP/s bf16, 494.7 / 3 TFLOP/s for 3xTF32, the card's
               float32-accurate tensor-core route, 494.7 / 2 for q float32
@@ -252,17 +260,17 @@ def prefill_pairs(starts):
 
 
 def ssd_bound(m, q, h, p, n):
-    """Bytes: every input read once (x, dt, cum, B, C) and both outputs
-    written once (y, state), float32. Operations: C·Bᵀ on the lower
-    triangle once per row m (2N each); per head the scores (2 multiplies
-    and an exp), y (2P each), the state weights (an exp and a multiply a
-    position), x·w (P a position) and the state (2PN a position)."""
+    """The SSD chunk's least time (flash_bound_entry): bytes, every input
+    read once (x, dt, cum, B, C) and both outputs written once (y, state),
+    float32, at 3.35 TB/s; the matrix products — C·Bᵀ on the lower
+    triangle once per row m (2N a pair), per head y (2P a pair) and the
+    state (2PN a position) — at the 3xTF32 rate the kernel forms them at;
+    per head an exp a score and a state weight."""
     tri = q * (q + 1) // 2
     byts = 4 * (2 * m * q * h * p + 2 * m * q * h + 2 * m * q * n
                 + m * h * p * n)
-    flops = m * (tri * 2 * n + h * (tri * (3 + 2 * p)
-                                     + q * (2 + p + 2 * p * n)))
-    return byts, flops
+    flops = m * (tri * 2 * n + h * (tri * 2 * p + q * 2 * p * n))
+    return flash_bound_entry(byts, flops, m * h * (tri + q), False)
 
 
 def bound_entry(byts, flops):
@@ -521,21 +529,85 @@ def whole_prompt_decode_row(torch, F, fn, ref, gen, dev):
                lib_ms)
 
 
-def ssd_inputs(torch, gen, dev, q):
-    """SSD chunk inputs shaped as mamba2 makes them: dt > 0 and A < 0, so
-    cum falls along the chunk and exp(cum_i - cum_j) overflows above the
-    diagonal at Q = 256."""
-    m, h, p, n = SSD_M, SSD_H, SSD_P, SSD_N
+def ssd_inputs(torch, gen, dev, q, m=None, h=None, p=None, n=None,
+               steep=False, offset=0):
+    """SSD chunk inputs shaped as mamba2 makes them (mamba2-1.3b's widths
+    and SSD_M rows unless given): dt > 0 and A < 0, so cum falls along the
+    chunk and exp(cum_i - cum_j) overflows above the diagonal at Q = 256;
+    ``steep`` takes A 8x larger, so that most of the decay underflows;
+    ``offset`` floats puts each operand in a contiguous view that many
+    floats into its allocation (1: 4 bytes off 16)."""
+    m, h, p, n = m or SSD_M, h or SSD_H, p or SSD_P, n or SSD_N
     x = torch.randn((m, q, h, p), generator=gen, device=dev)
     dt = 0.3 + 0.7 * torch.rand((m, q, h), generator=gen, device=dev)
     a = -(0.5 + torch.rand((h,), generator=gen, device=dev))
-    cum = torch.cumsum(dt * a, dim=1)
+    cum = torch.cumsum(dt * a * (8.0 if steep else 1.0), dim=1)
     b_ = 0.3 * torch.randn((m, q, n), generator=gen, device=dev)
     c_ = 0.3 * torch.randn((m, q, n), generator=gen, device=dev)
-    return x, dt, cum, b_, c_
+    if not offset:
+        return x, dt, cum, b_, c_
+
+    def shifted(t):
+        base = torch.empty(offset + t.numel(), device=dev)
+        base[offset:].copy_(t.flatten())
+        return base[offset:].view(t.shape)
+    return tuple(map(shifted, (x, dt, cum, b_, c_)))
+
+
+#: (M, Q, H, P, N, steep, offset): the serving chunk's neighbours and
+#: ragged chunks Q 1-256, one to nine rows, head counts that the head
+#: block of 2 leaves a tail of, the reduced configs' widths (16, 16) and
+#: mamba2-1.3b's; P and N odd or not multiples of 4, and operands 4 bytes
+#: off 16 (the kernel's 4-byte copies and single-float stores)
+SSD_CASES = [(1, 1, 1, 16, 16, False, 0), (4, 7, 3, 64, 128, False, 0),
+             (9, 13, 3, 16, 16, False, 0), (1, 16, 64, 64, 128, False, 0),
+             (4, 17, 3, 64, 128, False, 0), (9, 33, 64, 16, 16, False, 0),
+             (1, 100, 3, 64, 128, False, 0), (4, 255, 1, 16, 16, False, 0),
+             (9, 256, 3, 64, 128, True, 0), (1, 256, 64, 64, 128, True, 0),
+             (2, 33, 3, 18, 30, False, 0), (1, 16, 5, 7, 9, False, 0),
+             (4, 16, 64, 64, 128, False, 1), (2, 100, 3, 33, 17, False, 1)]
+
+
+def ssd_reckoning_check():
+    """common.ssd_smem against the kernel's own reckoning (its C entry),
+    over chunk lengths staged whole and streamed, every P slice and N
+    9-256."""
+    from repro_torch.kernels import build, common
+    fn = build.load("ssd_chunk_scan").ssd_chunk_scan_smem
+    fn.argtypes = [build.ctypes.c_int] * 3
+    fn.restype = build.ctypes.c_longlong
+    for q in (1, 16, 17, 64, 65, 256):
+        for ps in (16, 32, 64):
+            for n in (9, 16, 100, SSD_N, 256):
+                if fn(q, ps, n) != common.ssd_smem(q, ps, n):
+                    fail(f"ssd_smem(Q={q}, ps={ps}, N={n}) differs from "
+                         "the kernel's")
+    log(f"ssd_chunk_scan: shared memory a CTA: Q=16 "
+        f"{common.ssd_smem(16, 32, SSD_N)} B, Q=256 "
+        f"{common.ssd_smem(256, 64, SSD_N)} B (reckonings agree)")
+
+
+def ssd_rows(torch, fn, ref, gen, dev):
+    """The SSD kernel ``fn`` at mamba2-1.3b's widths, SSD_M rows, at the
+    serving chunk (Q = 16) and the whole-prompt chunk (Q = 256): max abs
+    error against the plain version, kernel and plain times, bound.
+    chip_ab.py runs it on both trees it compares."""
+    out = {}
+    for q in (16, 256):
+        args = ssd_inputs(torch, gen, dev, q)
+        y, st = fn(*args)
+        want_y, want_st = ref.ssd_chunk_ref(*args)
+        torch.cuda.synchronize()
+        err = max(check_close(f"ssd_chunk_scan y [Q={q}]", y, want_y),
+                  check_close(f"ssd_chunk_scan state [Q={q}]", st, want_st))
+        out[q] = row(err, timed_ms(torch, lambda: fn(*args)),
+                     timed_ms(torch, lambda: ref.ssd_chunk_ref(*args)),
+                     ssd_bound(SSD_M, q, SSD_H, SSD_P, SSD_N), None)
+    return out
 
 
 def ssd_kernel_phase(torch, K, ref, gen, dev, out):
+    ssd_reckoning_check()
     fn = K["ssd_chunk_scan"]
     errs = []
     for q in SSD_Q:
@@ -543,19 +615,36 @@ def ssd_kernel_phase(torch, K, ref, gen, dev, out):
         y, st = fn(*args)
         want_y, want_st = ref.ssd_chunk_ref(*args)
         torch.cuda.synchronize()
-        err = max(check_close(f"ssd_chunk_scan y [Q={q}]", y, want_y),
-                  check_close(f"ssd_chunk_scan state [Q={q}]", st, want_st))
-        errs.append(err)
-        ms = timed_ms(torch, lambda: fn(*args))
-        plain_ms = timed_ms(torch, lambda: ref.ssd_chunk_ref(*args))
-        bound = bound_entry(*ssd_bound(SSD_M, q, SSD_H, SSD_P, SSD_N))
+        errs.append(max(
+            check_close(f"ssd_chunk_scan y [Q={q}]", y, want_y),
+            check_close(f"ssd_chunk_scan state [Q={q}]", st, want_st)))
+        check_repeat(torch, f"ssd_chunk_scan [Q={q}]",
+                     lambda: torch.cat([t.flatten() for t in fn(*args)]),
+                     torch.cat([y.flatten(), st.flatten()]))
+    for m, q, h, p, n, steep, offset in SSD_CASES:
+        args = ssd_inputs(torch, gen, dev, q, m, h, p, n, steep, offset)
+        y, st = fn(*args)
+        want_y, want_st = ref.ssd_chunk_ref(*args)
+        torch.cuda.synchronize()
+        what = (f"[M={m} Q={q} H={h} P={p} N={n}{' steep' if steep else ''}"
+                f"{f' offset {offset}' if offset else ''}]")
+        errs.append(max(check_close(f"ssd_chunk_scan y {what}", y, want_y),
+                        check_close(f"ssd_chunk_scan state {what}", st,
+                                    want_st)))
+        check_repeat(torch, f"ssd_chunk_scan {what}",
+                     lambda: torch.cat([t.flatten() for t in fn(*args)]),
+                     torch.cat([y.flatten(), st.flatten()]))
+    log(f"ssd_chunk_scan: {len(SSD_Q) + len(SSD_CASES)} cases within "
+        f"{max(errs):.3e} (tol {ATOL} + {RTOL}*|plain|), each called twice, "
+        "bitwise equal")
+    rows = ssd_rows(torch, fn, ref, gen, dev)
+    for q, r in rows.items():
         log(f"ssd_chunk_scan M={SSD_M} Q={q} H={SSD_H} P={SSD_P} "
-            f"N={SSD_N}: max abs err {err:.3e} (tol {ATOL} + "
-            f"{RTOL}*|plain|) | kernel {ms:.4f} ms | plain {plain_ms:.4f} "
-            f"ms | bound {bound[0]:.6f} ms ({bound[1]})")
-        if q == SSD_Q[0]:
-            out["ssd_chunk_scan"] = row(0.0, ms, plain_ms, bound, None)
-    out["ssd_chunk_scan"]["max_abs_err"] = max(errs)
+            f"N={SSD_N}: max abs err {r['max_abs_err']:.3e} | kernel "
+            f"{r['ms']:.5f} ms | plain {r['plain_ms']:.4f} ms | bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+    out["ssd_chunk_scan"] = dict(rows[16], max_abs_err=max(
+        errs + [r["max_abs_err"] for r in rows.values()]))
 
 
 def kernel_phase(torch, F, K, ref):
@@ -582,7 +671,7 @@ FLASH_CASES = [(2048, 2048, True, "float32"), (2048, 2048, True, "bfloat16"),
                (1024, 1024, True, "float32"), (1024, 1024, True, "bfloat16"),
                (1000, 1000, True, "float32"), (256, 2048, False, "float32")]
 FLASH_BWD_S = 1024                  # the training sequence length
-RMS_ROWS, RMS_D = [4096, 4095], 2048
+RMS_R, RMS_D = 4096, 2048       # the timed RMSNorm shape
 
 
 def flash_pairs(sq, skv, causal):
@@ -770,32 +859,70 @@ def flash_kernel_phase(torch, F, K, ref, gen, dev, out):
         torch.cuda.empty_cache()
 
 
+#: (rows, D): widths of the one-read variant with 4- or 2-byte copies (1,
+#: 7, 2047), one and four warps a row (2048, 8192), and past it (20000, the
+#: streaming variant); one row, an odd row count, the timed shape
+RMS_CASES = [(r, d) for d in (1, 7, 2047, 2048, 8192, 20000)
+             for r in (1, 4095, 4096)]
+
+
+def rmsnorm_rows(torch, F, fn, ref, gen, dev):
+    """The RMSNorm kernel ``fn`` at 4096 x 2048 in float32 and bfloat16:
+    max abs error against the plain version, kernel and plain times,
+    F.rms_norm's (the yardstick: the weight cast to x's dtype, as
+    F.rms_norm takes it) and the bound (bytes: x read once, y written
+    once, the weight). chip_ab.py runs it on both trees it compares."""
+    out = {}
+    w = 1 + 0.1 * torch.randn((RMS_D,), generator=gen, device=dev)
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        x = torch.randn((RMS_R, RMS_D), generator=gen,
+                        device=dev).to(dt)
+        got = fn(x, w)
+        torch.cuda.synchronize()
+        tol = ATOL if dname == "float32" else BF16_TOL
+        err = check_close(f"rmsnorm[R={RMS_R} {dname}]", got,
+                          ref.rmsnorm_ref(x, w), tol)
+        wd = w.to(dt)
+        out[dname] = row(
+            err, timed_ms(torch, lambda: fn(x, w)),
+            timed_ms(torch, lambda: ref.rmsnorm_ref(x, w)),
+            bound_entry(2 * x.numel() * x.element_size() + RMS_D * 4,
+                        3 * x.numel()),
+            timed_ms(torch, lambda: F.rms_norm(x, (RMS_D,), wd, 1e-5)))
+    return out
+
+
 def rmsnorm_kernel_phase(torch, F, K, ref, gen, dev, out):
     fn = K["rmsnorm"]
-    w = 1 + 0.1 * torch.randn((RMS_D,), generator=gen, device=dev)
-    for rows in RMS_ROWS:
-        for dname in ("float32", "bfloat16"):
-            x = torch.randn((rows, RMS_D), generator=gen, device=dev).to(
-                getattr(torch, dname))
-            tol = ATOL if dname == "float32" else BF16_TOL
-            got = fn(x, w)
-            torch.cuda.synchronize()
-            err = check_close(f"rmsnorm[R={rows} {dname}]", got,
-                              ref.rmsnorm_ref(x, w), tol)
-            line = (f"rmsnorm R={rows} D={RMS_D} {dname}: max abs err "
-                    f"{err:.3e} (tol {tol} + {tol}*|plain|)")
-            if rows == RMS_ROWS[0] and dname == "float32":
-                ms = timed_ms(torch, lambda: fn(x, w))
-                plain_ms = timed_ms(torch, lambda: ref.rmsnorm_ref(x, w))
-                lib_ms = timed_ms(torch, lambda: F.rms_norm(
-                    x, (RMS_D,), w, 1e-5))
-                bound = bound_entry(2 * rows * RMS_D * 4 + RMS_D * 4,
-                                    3 * rows * RMS_D)
-                line += (f" | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms |"
-                         f" F.rms_norm {lib_ms:.4f} ms | bound "
-                         f"{bound[0]:.6f} ms ({bound[1]})")
-                out["rmsnorm"] = row(err, ms, plain_ms, bound, lib_ms)
-            log(line)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for rows, d in RMS_CASES:
+        w = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+        for dname, tol in (("float32", ATOL), ("bfloat16", BF16_TOL)):
+            dt = getattr(torch, dname)
+            for offset in (0, 1):     # a contiguous view 1 element off 16
+                base = torch.randn((rows * d + offset,), generator=gen,
+                                   device=dev).to(dt)
+                x = base[offset:].view(rows, d)
+                got = fn(x, w)
+                torch.cuda.synchronize()
+                what = f"rmsnorm[R={rows} D={d} {dname} offset {offset}]"
+                errs[dname] = max(errs[dname], check_close(
+                    what, got, ref.rmsnorm_ref(x, w), tol))
+                check_repeat(torch, what, lambda: fn(x, w), got)
+    log(f"rmsnorm: {len(RMS_CASES) * 4} cases (D 1-20000, R 1/4095/4096, "
+        f"both dtypes, aligned and 1 element off) within "
+        f"{errs['float32']:.3e} float32 (tol {ATOL} + {RTOL}*|plain|), "
+        f"{errs['bfloat16']:.3e} bfloat16 (tol {BF16_TOL}); each called "
+        "twice, bitwise equal")
+    rows = rmsnorm_rows(torch, F, fn, ref, gen, dev)
+    for dname, r in rows.items():
+        log(f"rmsnorm R={RMS_R} D={RMS_D} {dname}: max abs err "
+            f"{r['max_abs_err']:.3e} | kernel {r['ms']:.5f} ms | plain "
+            f"{r['plain_ms']:.4f} ms | F.rms_norm {r['library_ms']:.5f} ms "
+            f"| bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+    out["rmsnorm"] = dict(rows["float32"], max_abs_err=max(
+        errs["float32"], rows["float32"]["max_abs_err"]))
 
 
 # ------------------------------------------------------------------ phase 4

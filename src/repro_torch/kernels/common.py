@@ -210,6 +210,49 @@ def paged_prefill_smem(d: int, q_elt: int, kv_elt: int) -> int:
     return prefill_smem(d, q_elt, kv_elt) + TABLE_CACHE_BYTES
 
 
+#: the SSD kernel's tile of positions, warps a CTA (and C rows staged: a
+#: tile a warp), heads a CTA, the longest chunk staged whole (in tiles),
+#: the ring a longer chunk streams through, the most parts a short chunk's
+#: C·Bᵀ depth is split into, and the warps that form it
+#: (csrc/ssd_chunk_scan.cu)
+SSD_TILE, SSD_WARPS, SSD_HEADS, SSD_RESIDENT_TILES, SSD_RING = \
+    16, 8, 2, 4, 4
+SSD_MAX_SPLIT, SSD_CB_WARPS = 4, 4
+
+
+def ssd_cb_split(nt: int) -> int:
+    """Parts the depth of a staged chunk's C·Bᵀ tiles is split into, so
+    that its (tile pair, column half, part) units keep the 4 warps that
+    form it busy (csrc/ssd_chunk_scan.cu ``cb_split``)."""
+    kc = 1
+    while kc < SSD_MAX_SPLIT and nt * (nt + 1) * kc * 2 <= SSD_CB_WARPS:
+        kc *= 2
+    return kc
+
+
+def ssd_smem(q: int, ps: int, n: int) -> int:
+    """Dynamic shared memory of one SSD CTA (csrc/ssd_chunk_scan.cu
+    ``Layout``), in bytes: C rows for up to 8 tiles of 16 positions, then
+    the staged tiles — all of them for Q <= 64, else a ring of 4 (2 where 4
+    would not fit) — each B, x of the two heads' ``ps``-column slice,
+    cum and dt; a staged chunk adds its C·Bᵀ fragments (a tile pair at or
+    below the diagonal, two column halves, its depth parts, 128 floats
+    each). Rows of B and C are N padded to 8 plus 4 floats, rows of x
+    ``ps`` plus 4."""
+    nt = -(-q // SSD_TILE)
+    ldn = -(-n // 8) * 8 + 4
+    ldp = ps + 4
+    crows = SSD_TILE * min(nt, SSD_WARPS)
+    stage = SSD_TILE * ldn + SSD_HEADS * SSD_TILE * (ldp + 2)
+    if nt <= SSD_RESIDENT_TILES:
+        stages, cb = nt, nt * (nt + 1) * ssd_cb_split(nt) * 128
+    elif 4 * (crows * ldn + SSD_RING * stage) <= MAX_SMEM_BYTES:
+        stages, cb = SSD_RING, 0
+    else:
+        stages, cb = 2, 0
+    return 4 * (crows * ldn + stages * stage + cb)
+
+
 @functools.lru_cache(maxsize=16)
 def rope_table(d: int, theta: float, device: torch.device) -> torch.Tensor:
     """The d/2 RoPE inverse frequencies the kernels rotate with — the same

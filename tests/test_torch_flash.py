@@ -286,6 +286,48 @@ def test_rmsnorm_plain_matches_pallas(dtype):
     _close(got3.float(), np.asarray(want3.astype(jnp.float32)), TOL[dtype])
 
 
+#: (dtype, d, offset in elements of a contiguous view, copy bytes):
+#: aligned rows take 16 bytes; a view 1, 2 or 4 elements off 16, or a row
+#: whose d * element size is not a multiple of 16, the widest width that
+#: every row still allows
+RMS_COPY_CASES = [("float32", 2048, 0, 16), ("float32", 2048, 1, 4),
+                  ("float32", 2048, 2, 8), ("float32", 2047, 0, 4),
+                  ("float32", 2, 0, 8), ("bfloat16", 2048, 0, 16),
+                  ("bfloat16", 2048, 1, 2), ("bfloat16", 2048, 2, 4),
+                  ("bfloat16", 2048, 4, 8), ("bfloat16", 7, 0, 2)]
+
+
+@pytest.mark.parametrize("dtype,d,offset,want", RMS_COPY_CASES)
+def test_rmsnorm_plan_takes_the_widest_aligned_copy(dtype, d, offset, want):
+    """The wrapper's launch plan (pure Python): the copy width from the
+    base addresses of x and out and the row's bytes, on aligned and offset
+    contiguous views; warps a row from D (0: the streaming variant);
+    evict-first copies where x and the output outgrow the L2 (an H100's
+    50 MB here)."""
+    from repro_torch.kernels.rmsnorm import MAX_REGISTER_D, plan
+    base = torch.randn(3 * d + 8, generator=torch.Generator().manual_seed(
+        d)).to(getattr(torch, dtype))
+    assert base.data_ptr() % 16 == 0
+    x = base[offset:offset + 3 * d].view(3, d)
+    out = torch.empty_like(x)
+    l2 = 50 * 2**20
+    got = plan(x.data_ptr(), out.data_ptr(), 3, d, x.element_size(), l2)
+    assert got == (want, 1, False)
+    assert (x.data_ptr() | out.data_ptr() | d * x.element_size()) % got[0] \
+        == 0
+    for dd, team in ((1, 1), (2048, 1), (2049, 2), (8192, 4),
+                     (MAX_REGISTER_D, 8), (MAX_REGISTER_D + 1, 0),
+                     (20000, 0)):
+        assert plan(0, 0, 1, dd, 4, l2)[1] == team
+    # 4096 x 2048: 67 MB in float32 (evict-first), 34 MB in bfloat16
+    assert plan(0, 0, 4096, 2048, 4, l2)[2]
+    assert not plan(0, 0, 4096, 2048, 2, l2)[2]
+    # the CPU path takes the same view as the plain version
+    w = torch.ones(d)
+    torch.testing.assert_close(rmsnorm(x.float().contiguous(), w),
+                               tref.rmsnorm_ref(x.float(), w))
+
+
 def test_flash_and_rmsnorm_wrappers_reject_bad_operands():
     q = torch.empty((1, 4, 8, 16), device="meta")
     k = torch.empty((1, 2, 8, 16), device="meta")
@@ -378,4 +420,30 @@ def test_cuda_rmsnorm_matches_plain_version(cuda_device, dtype):
         torch.testing.assert_close(rmsnorm(x, w).float(),
                                    tref.rmsnorm_ref(x, w).float(),
                                    atol=TOL[dtype], rtol=TOL[dtype])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 7, 2047, 2048, 8192, 20000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_every_variant(cuda_device, d, dtype):
+    """Every variant and copy width against the plain version: D of 1, 7
+    and 2047 (4- or 2-byte copies), 2048 and 8192 (one and four warps a
+    row), 20000 (past the register variant: the streaming one); R of 1,
+    4095 and 4096; the rows of a contiguous view 1 element off the
+    allocation (4- or 2-byte copies); each call twice, bitwise equal."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    w = 1 + 0.1 * torch.randn((d,), generator=gen, device=cuda_device)
+    for rows in (1, 4095, 4096):
+        for offset in (0, 1):
+            base = torch.randn((rows * d + offset,), generator=gen,
+                               device=cuda_device).to(dt)
+            x = base[offset:].view(rows, d)
+            got = rmsnorm(x, w)
+            torch.testing.assert_close(got.float(),
+                                       tref.rmsnorm_ref(x, w).float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+            assert torch.isfinite(got).all()
+            assert torch.equal(got, rmsnorm(x, w))
     torch.cuda.synchronize()

@@ -2,8 +2,8 @@
 
 * every ``repro_torch`` module imports in a fresh interpreter without
   ``jax`` or any ``repro`` module appearing in ``sys.modules``;
-* no import statement in ``src/repro_torch``, ``chip_smoke.py`` or
-  ``chip_ab.py`` names ``jax`` or ``repro``;
+* no import statement in ``src/repro_torch``, ``chip_smoke.py``,
+  ``chip_ab.py`` or ``chip_ssd_variants.py`` names ``jax`` or ``repro``;
 * an entry point's default device is CUDA: without a usable GPU it raises
   rather than carrying on on the CPU;
 * a kernel whose library cannot load raises: the CUDA route never falls
@@ -51,7 +51,8 @@ def test_every_module_imports_without_jax_or_repro():
 
 def test_no_jax_or_repro_imports_in_sources():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "chip_ab.py"]
+                                         ROOT / "chip_ab.py",
+                                         ROOT / "chip_ssd_variants.py"]
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in files for m in IMPORT_RE.finditer(p.read_text())]
     assert offenders == []

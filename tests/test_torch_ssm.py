@@ -86,6 +86,76 @@ def test_ssd_plain_matches_pallas_and_jax_ref(q):
     assert ssd_chunk_scan.launches == before
 
 
+@pytest.mark.parametrize("q,h,head_block", [(17, 6, 4), (33, 6, 4),
+                                          (16, 3, 2)])
+def test_ssd_plain_matches_pallas_at_ragged_chunks_and_head_blocks(
+        q, h, head_block):
+    """Chunks that are not a multiple of the CUDA kernel's 16-position
+    tile (17, 33), and 3 heads asked for in blocks of 2 (the Pallas kernel
+    falls back to blocks of 1 there; the ragged head block of the CUDA
+    kernel is held only on the card, by the gpu cases with H = 3)."""
+    m, p, n = 2, 8, 16
+    arrays = ssd_inputs(np.random.default_rng(100 + q), m, q, h, p, n)
+    want_y, want_st = pallas_ssd(*map(jnp.asarray, arrays),
+                                 head_block=head_block, interpret=True)
+    oracle_y, oracle_st = jax.vmap(jref.ssd_chunk_ref)(
+        *map(jnp.asarray, arrays))
+    got_y, got_st = tref.ssd_chunk_ref(*map(torch.from_numpy, arrays))
+    for got, want in ((got_y, want_y), (got_y, oracle_y), (got_st, want_st),
+                      (got_st, oracle_st)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
+
+
+def _split_einsum(eq, a, b, terms):
+    """``einsum(eq, a, b)`` with every product formed from the operands'
+    TF32 splits: big·big + big·small + small·big (terms = 3, the kernel's
+    route), or big·big alone (terms = 1), summed in float32."""
+    ab, asm = tref.tf32_split(a)
+    bb, bsm = tref.tf32_split(b)
+    out = torch.einsum(eq, ab, bb)
+    if terms == 3:
+        out = out + (torch.einsum(eq, ab, bsm) + torch.einsum(eq, asm, bb))
+    return out
+
+
+def _split_ssd(x, dt, cum, b_, c_, terms):
+    """``ref.ssd_chunk_ref`` with its three products through _split_einsum,
+    as csrc/ssd_chunk_scan.cu forms them on the tensor cores: C·Bᵀ; the
+    scores (from that C·Bᵀ, in float32) times x; x ⊙ w times B."""
+    q = x.shape[-3]
+    cb = _split_einsum("mqn,mkn->mqk", c_, b_, terms)
+    seg = cum[:, :, None, :] - cum[:, None, :, :]
+    tri = torch.ones((q, q), dtype=torch.bool).tril()
+    decay = torch.where(tri[:, :, None], torch.exp(seg), torch.tensor(0.0))
+    scores = cb[..., None] * decay * dt[:, None, :, :]
+    y = _split_einsum("mqkh,mkhp->mqhp", scores, x, terms)
+    xw = x * (torch.exp(cum[:, -1:, :] - cum) * dt)[..., None]
+    state = _split_einsum("mqhp,mqn->mhpn", xw, b_, terms)
+    return y, state
+
+
+@pytest.mark.parametrize("q", [16, 256])
+def test_3xtf32_ssd_products_keep_the_float32_tolerance(q):
+    """The precision plan of the SSD kernel, on the CPU at mamba2-1.3b's
+    widths (64 heads of 64, state 128): with C·Bᵀ, the scores' product with
+    x and the state's product each formed as big·big + big·small +
+    small·big, y and the state stay within 2e-5 + 2e-5·|plain| of the plain
+    version at the serving chunk (Q = 16) and the whole-prompt chunk
+    (Q = 256); with big·big alone (one TF32 product) they do not."""
+    arrays = [torch.from_numpy(a) for a in
+              ssd_inputs(np.random.default_rng(200 + q), 1, q, 64, 64, 128)]
+    want = tref.ssd_chunk_ref(*arrays)
+
+    def within(got, ref_):
+        return bool(((got - ref_).abs() <= 2e-5 + 2e-5 * ref_.abs()).all())
+
+    assert all(within(g, w) for g, w in zip(_split_ssd(*arrays, terms=3),
+                                            want))
+    assert not all(within(g, w) for g, w in zip(_split_ssd(*arrays, terms=1),
+                                                want))
+
+
 def test_ssd_forward_cpu_and_card_paths_agree():
     """The inline jnp lowering the CPU runs and the kernel path the card
     runs (chunks flattened to M = B * nc, ``ops.ssd_intra_chunk``, here
@@ -110,6 +180,38 @@ def test_ssd_wrapper_rejects_bad_operands():
     bn = torch.empty((1, 4, 16), device="meta")
     with pytest.raises(ValueError, match="CPU or a CUDA"):
         ssd_chunk_scan(x, t, t, bn, bn)
+
+
+@pytest.mark.parametrize("m,q,want", [(4, 16, 32), (1, 16, 16),
+                                      (4, 64, 32), (4, 256, 64),
+                                      (1, 256, 16)])
+def test_ssd_plan_and_shared_memory_reckoning(m, q, want):
+    """The wrapper's launch plan and its reckoning of a CTA's shared memory
+    (pure Python; the card checks the reckoning against the kernel's C
+    entry). At mamba2-1.3b's widths (two heads a CTA) the P slice gives
+    1.5 CTAs an SM for a chunk staged whole (Q <= 64), half a CTA an SM
+    for a streamed one; every plan over ragged shapes names a kernel
+    instance and fits a CTA's shared memory."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.ssd_scan import MAX_N, SLICES, plan
+    assert plan(m, q, 64, 64) == want
+    for mm, qq, h, p, n in [(1, 1, 1, 16, 16), (9, 13, 3, 16, 16),
+                            (2, 33, 5, 20, 12), (1, 256, 64, 64, MAX_N),
+                            (3, 100, 7, 48, 100), (1, 16, 5, 7, 9)]:
+        ps = plan(mm, qq, h, p)
+        assert ps in SLICES and (ps < 2 * p or ps == SLICES[-1])
+        assert common.ssd_smem(qq, ps, n) <= common.MAX_SMEM_BYTES
+    # Q = 16: C rows (16 x 132 floats), one tile (B 16 x 132, x of two
+    # heads 2 x 16 x 36, cum and dt 2 x 2 x 16) and its C·Bᵀ fragments
+    # (one tile pair, two column halves, two depth parts, 128 floats each)
+    assert common.ssd_smem(16, 32, 128) == 4 * (
+        16 * 132 + (16 * 132 + 2 * 16 * 36 + 64) + 2 * 2 * 128)
+    # Q = 256: 8 tiles of C rows and a ring of 4 tiles
+    assert common.ssd_smem(256, 64, 128) == 4 * (
+        128 * 132 + 4 * (16 * 132 + 2 * 16 * 68 + 64))
+    # N = 256 at Q = 256: a ring of 4 would not fit, 2 does
+    assert common.ssd_smem(256, 64, 256) == 4 * (
+        128 * 260 + 2 * (16 * 260 + 2 * 16 * 68 + 64))
 
 
 def test_largest_divisor_matches_jax():
@@ -258,3 +360,70 @@ def test_cuda_ssd_kernel_matches_plain_version(cuda_device, q):
     torch.cuda.synchronize()
     torch.testing.assert_close(y, want_y, atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(st, want_st, atol=2e-5, rtol=2e-5)
+
+
+#: (M, Q, H, P, N, steep, offset): every chunk length the kernel tiles
+#: differently (1, 7, 13 pad one tile; 16 the serving chunk; 17, 33, 100
+#: ragged; 255, 256 streamed), one to nine rows, head counts that the head
+#: block of 2 leaves a tail of, the reduced configs' widths and
+#: mamba2-1.3b's, a steep decay at Q = 256 (most of exp(cum_i - cum_j)
+#: underflows); P and N odd or not multiples of 4, and operands in a
+#: contiguous view 1 float (4 bytes) off 16 (the kernel's 4-byte copies
+#: and single-float stores)
+CUDA_SSD_CASES = [(1, 1, 1, 16, 16, False, 0), (4, 7, 3, 64, 128, False, 0),
+                  (9, 13, 64, 16, 16, False, 0),
+                  (4, 16, 64, 64, 128, False, 0),
+                  (1, 16, 3, 64, 128, False, 0),
+                  (9, 17, 1, 64, 128, False, 0),
+                  (4, 33, 3, 16, 16, False, 0),
+                  (1, 100, 64, 64, 128, False, 0),
+                  (4, 255, 3, 64, 128, False, 0),
+                  (1, 256, 64, 64, 128, True, 0),
+                  (9, 256, 3, 16, 16, True, 0),
+                  (2, 33, 3, 18, 30, False, 0), (1, 16, 5, 7, 9, False, 0),
+                  (3, 256, 5, 33, 17, False, 0),
+                  (4, 16, 64, 64, 128, False, 1),
+                  (2, 100, 3, 33, 17, False, 1)]
+
+
+def _offset_view(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """``t`` copied into a contiguous view ``offset`` elements into its
+    allocation."""
+    base = torch.empty(offset + t.numel(), dtype=t.dtype, device=t.device)
+    base[offset:].copy_(t.flatten())
+    return base[offset:].view(t.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CUDA_SSD_CASES)
+def test_cuda_ssd_kernel_cases(cuda_device, case):
+    """The kernel against its plain version at every case above, through
+    the wrapper's plan and through every P slice the kernel is
+    instantiated for; outputs finite, each call twice bitwise equal; the
+    wrapper's shared-memory reckoning against the kernel's C entry."""
+    from repro_torch.kernels import build, common
+    from repro_torch.kernels.ssd_scan import SLICES, launch
+    m, q, h, p, n, steep, offset = case
+    x, dt, cum, b_, c_ = ssd_inputs(np.random.default_rng(q), m, q, h, p, n)
+    if steep:
+        cum = cum * 8
+    arrays = [_offset_view(torch.from_numpy(a).to(cuda_device), offset)
+              for a in (x, dt, cum, b_, c_)]
+    if offset:
+        assert all(a.data_ptr() % 16 == 4 * offset for a in arrays)
+    want_y, want_st = tref.ssd_chunk_ref(*arrays)
+    runs = [lambda: ssd_chunk_scan(*arrays)]
+    runs += [lambda ps=ps: launch(*arrays, ps) for ps in SLICES]
+    for run in runs:
+        y, st = run()
+        torch.cuda.synchronize()
+        assert torch.isfinite(y).all() and torch.isfinite(st).all()
+        torch.testing.assert_close(y, want_y, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(st, want_st, atol=2e-5, rtol=2e-5)
+        y2, st2 = run()
+        assert torch.equal(y, y2) and torch.equal(st, st2)
+    smem = build.load("ssd_chunk_scan").ssd_chunk_scan_smem
+    smem.argtypes = [build.ctypes.c_int] * 3
+    smem.restype = build.ctypes.c_longlong
+    for ps in SLICES:
+        assert smem(q, ps, n) == common.ssd_smem(q, ps, n)
