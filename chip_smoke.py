@@ -19,6 +19,12 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                 horizons crossing pages; each called twice, bitwise equal
                 (the cluster combines run in a fixed order), and the
                 wrappers' shared-memory reckoning against the kernels';
+                again (one helper for every geometry) at each geometry the
+                scenario phase runs them at, bf16 pools: the Scenario
+                vehicle (4 heads of 16 over 2 KV heads, chunk 8) at the
+                tuned pages 64, 128 and 256, and full-width tinyllama-1.1b
+                at chunk 8 and page 256: rows shorter than a page, across
+                pages and across the whole table;
               * contiguous decode / prefill (the same widths, a 256-position
                 slot; the same bodies, paged_attention.cuh, over a strided
                 addressing): decode lengths 37/256/1/0, prefill starts
@@ -85,6 +91,27 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               layers on both): logits must agree within 1e-3 absolute with
               float32 caches and 2e-2 with the bfloat16 serving caches
               (card_vs_cpu says why).
+   scenario — the paper's three-app concurrent workload (chatbot 2,
+              imagegen 2, live_captions 5 requests; 256 chips of the
+              simulated tpu-v5e) as a repro_torch.bench.Scenario through
+              engine_runner.run_scenario_on_engine: (a) the five fig5
+              policies on the reference vehicle (tinyllama-1.1b reduced, 2
+              layers, its pages tuned), on the card and again on the CPU in
+              this process: the two result documents and every engine's
+              token streams must be equal, the vehicle's weights on the
+              card must equal the CPU's bit for bit, and one prefill chunk
+              and decode step of it at page 256 must agree with the CPU's
+              logits within phase 4's tolerances; (b)
+              slo_aware at full tinyllama-1.1b width (the runner's
+              engine_model substituted here): per-app latencies, SLO
+              attainment and makespan must equal (a)'s, other differing
+              fields are printed, and 10 steps are profiled for the
+              device's idle share. Each run between a zero of the launch
+              counts and an exact check: layers x decode dispatches of
+              paged decode, layers x prefill dispatches of paged prefill;
+              every engine at a geometry that phase 3 checked.
+              The Scenario seconds are the virtual clock's (the simulated
+              chip's model), not a measurement of the card.
 5. training — at full tinyllama-1.1b width, random float32 weights from
               seed 0, each path between a zero of every launch count and
               an exact check of them all:
@@ -107,8 +134,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -132,6 +161,39 @@ ROPE_THETA = 10_000.0
 # mamba2-1.3b's SSD widths: heads, head dim, state; rows x chunks
 SSD_H, SSD_P, SSD_N, SSD_M = 64, 64, 128, 4
 SSD_Q = [16, 13, 1, 256]           # 16: the serving chunk (timed)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedShape:
+    """A geometry of the paged kernels, on B rows over a pool of POOL
+    pages: query heads, KV heads, head dim, prefill chunk, page and
+    block-table entries a row."""
+    label: str
+    h: int
+    kv: int
+    d: int
+    c: int
+    page: int
+    nb: int
+
+    @property
+    def cap(self) -> int:
+        return self.page * self.nb
+
+
+#: the serving paths' geometry (phase 4)
+SERVING = PagedShape("serving", H, KV, D, C, PAGE, NB)
+#: every geometry the scenario phase runs the paged kernels at: the
+#: runner's vehicle (engine_runner.engine_model: tinyllama-1.1b reduced to
+#: 2 layers, 4 heads of 16 over 2 KV heads, chunk 8) at the pages the tuner
+#: picks for it without a page budget (64 at max-seq 64, 128 at 128, 256
+#: from 256 on; up to 5 table entries, static's max-seq 1088), and
+#: full-width tinyllama-1.1b at chunk 8 and page 256 (max-seq 896: 4
+#: entries); scenario_phase fails on an engine at any other geometry
+SCENARIO_SHAPES = [PagedShape(f"vehicle, page {p}", 4, 2, 16, 8, p, 5)
+                   for p in (64, 128, 256)] + [
+    PagedShape("full width, page 256", H, KV, D, 8, 256, 4)]
+PAGED_SHAPES = [SERVING, *SCENARIO_SHAPES]
 
 
 def fail(msg: str) -> None:
@@ -193,14 +255,16 @@ def timed_ms(torch, fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def make_pool(torch, gen, dev, need_pages, pool_dtype):
+def make_pool(torch, gen, dev, need_pages, pool_dtype, page=PAGE, kv=KV,
+              d=D, nb=NB):
     """Pools with garbage in the sentinel page 0 and past every row's
-    valid positions; row i maps ``need_pages[i]`` distinct real pages."""
-    k = torch.randn((POOL, PAGE, KV, D), generator=gen, device=dev)
-    v = torch.randn((POOL, PAGE, KV, D), generator=gen, device=dev)
+    valid positions; row i maps ``need_pages[i]`` distinct real pages (the
+    rest of its ``nb``-entry table is sentinel)."""
+    k = torch.randn((POOL, page, kv, d), generator=gen, device=dev)
+    v = torch.randn((POOL, page, kv, d), generator=gen, device=dev)
     k[0], v[0] = 50.0, -50.0
     ids = torch.randperm(POOL - 1, generator=gen, device=dev) + 1
-    bt = torch.zeros((B, NB), dtype=torch.int32, device=dev)
+    bt = torch.zeros((B, nb), dtype=torch.int32, device=dev)
     at = 0
     for i, n in enumerate(need_pages):
         bt[i, :n] = ids[at:at + n].to(torch.int32)
@@ -307,7 +371,7 @@ def reckoning_check(torch, layout):
         fn.restype = build.ctypes.c_longlong
     for d in (16, D, 80, 256):
         for kv_elt in (2, 4):
-            for g in (1, H // KV, 32):
+            for g in sorted({1, 32} | {p.h // p.kv for p in PAGED_SHAPES}):
                 if dec(g, d, int(kv_elt == 2)) != \
                         common.decode_smem(g, d, kv_elt):
                     fail(f"{layout} decode_smem(G={g}, d={d}) differs from "
@@ -345,31 +409,66 @@ def row(err, ms, plain_ms, bound, library_ms):
                 bound_by=bound[1], library_ms=library_ms)
 
 
+def paged_decode_case(torch, K, ref, gen, dev, shape, lengths, pool_dtype):
+    """Kernel #1 at ``shape`` on rows of ``lengths`` (a row of length 0 is
+    idle: its table is all sentinel, and the kernel must give 0), against
+    its plain version, and called twice (bitwise equal). Returns the max abs
+    error and the call's inputs (q, k, v, tables, lengths)."""
+    need = [math.ceil(n / shape.page) for n in lengths]
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn((B, shape.h, shape.d), generator=gen, device=dev)
+    k, v, bt = make_pool(torch, gen, dev, need, pool_dtype, page=shape.page,
+                         kv=shape.kv, d=shape.d, nb=shape.nb)
+    call = functools.partial(K["paged_decode_attention"], q, k, v, bt, ln,
+                             rope_theta=ROPE_THETA)
+    got = call()
+    want = ref.paged_decode_attention_ref(q, k, v, bt, ln,
+                                          rope_theta=ROPE_THETA)
+    torch.cuda.synchronize()
+    name = f"paged_decode_attention[{shape.label}, pools={pool_dtype}]"
+    active = [i for i, n in enumerate(lengths) if n > 0]
+    err = check_close(name, got[active], want[active])
+    if not all(torch.all(got[i] == 0) for i, n in enumerate(lengths)
+               if n == 0):
+        fail(f"{name}: a length-0 row must give 0")
+    check_repeat(torch, name, call, got)
+    return err, (q, k, v, bt, ln)
+
+
+def paged_prefill_case(torch, K, ref, gen, dev, shape, starts, pool_dtype):
+    """Kernel #2 at ``shape``: a chunk of ``shape.c`` tokens a row from
+    ``starts``, against its plain version, and called twice (bitwise
+    equal). Returns the max abs error and the call's inputs (q, k, v,
+    tables, starts)."""
+    need = [math.ceil((s + shape.c) / shape.page) for s in starts]
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    # model layout (B, C, H, d) seen head-major, as ops passes it
+    qc = torch.randn((B, shape.c, shape.h, shape.d), generator=gen,
+                     device=dev).transpose(1, 2)
+    k, v, bt = make_pool(torch, gen, dev, need, pool_dtype, page=shape.page,
+                         kv=shape.kv, d=shape.d, nb=shape.nb)
+    call = functools.partial(K["paged_prefill_attention"], qc, k, v, bt, st,
+                             rope_theta=ROPE_THETA)
+    got = call()
+    want = ref.paged_prefill_attention_ref(qc, k, v, bt, st,
+                                           rope_theta=ROPE_THETA)
+    torch.cuda.synchronize()
+    name = f"paged_prefill_attention[{shape.label}, pools={pool_dtype}]"
+    err = check_close(name, got, want)
+    check_repeat(torch, name, call, got)
+    return err, (qc, k, v, bt, st)
+
+
 def paged_kernel_phase(torch, F, K, ref, gen, dev, out):
     reckoning_check(torch, "paged")
     # ---------------------------------------------------------- decode
-    # the idle row 3 maps no page: its table is all sentinel
-    need = [math.ceil(n / PAGE) for n in DECODE_LENGTHS]
-    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
-    q = torch.randn((B, H, D), generator=gen, device=dev)
-    active = [i for i, n in enumerate(DECODE_LENGTHS) if n > 0]
-    fn = K["paged_decode_attention"]
     for pool_dtype in (torch.bfloat16, torch.float32):
-        k, v, bt = make_pool(torch, gen, dev, need, pool_dtype)
-        got = fn(q, k, v, bt, lengths, rope_theta=ROPE_THETA)
-        want = ref.paged_decode_attention_ref(q, k, v, bt, lengths,
-                                              rope_theta=ROPE_THETA)
-        torch.cuda.synchronize()
-        err = check_close(f"paged_decode_attention[{pool_dtype}]",
-                          got[active], want[active])
-        if not torch.all(got[3] == 0):
-            fail("paged_decode_attention: a length-0 row must give 0")
-        check_repeat(torch, f"paged_decode_attention[{pool_dtype}]",
-                     lambda: fn(q, k, v, bt, lengths, rope_theta=ROPE_THETA),
-                     got)
+        err, (q, k, v, bt, lengths) = paged_decode_case(
+            torch, K, ref, gen, dev, SERVING, DECODE_LENGTHS, pool_dtype)
         log(f"paged_decode_attention q=float32 pools={pool_dtype}: "
             f"max abs err {err:.3e} (tol {ATOL} + {RTOL}*|plain|)")
         if pool_dtype == torch.bfloat16:
+            fn = K["paged_decode_attention"]
             ms = timed_ms(torch, lambda: fn(q, k, v, bt, lengths,
                                             rope_theta=ROPE_THETA))
             plain_ms = timed_ms(torch, lambda: ref.paged_decode_attention_ref(
@@ -386,24 +485,13 @@ def paged_kernel_phase(torch, F, K, ref, gen, dev, out):
                 lib_ms)
 
     # --------------------------------------------------------- prefill
-    need = [math.ceil((s + C) / PAGE) for s in PREFILL_STARTS]
-    start = torch.tensor(PREFILL_STARTS, dtype=torch.int32, device=dev)
-    # model layout (B, C, H, d) seen head-major, as ops passes it
-    qc = torch.randn((B, C, H, D), generator=gen, device=dev).transpose(1, 2)
-    fn = K["paged_prefill_attention"]
     for pool_dtype in (torch.bfloat16, torch.float32):
-        k, v, bt = make_pool(torch, gen, dev, need, pool_dtype)
-        got = fn(qc, k, v, bt, start, rope_theta=ROPE_THETA)
-        want = ref.paged_prefill_attention_ref(qc, k, v, bt, start,
-                                               rope_theta=ROPE_THETA)
-        torch.cuda.synchronize()
-        err = check_close(f"paged_prefill_attention[{pool_dtype}]", got, want)
-        check_repeat(torch, f"paged_prefill_attention[{pool_dtype}]",
-                     lambda: fn(qc, k, v, bt, start, rope_theta=ROPE_THETA),
-                     got)
+        err, (qc, k, v, bt, start) = paged_prefill_case(
+            torch, K, ref, gen, dev, SERVING, PREFILL_STARTS, pool_dtype)
         log(f"paged_prefill_attention q=float32 pools={pool_dtype}: "
             f"max abs err {err:.3e} (tol {ATOL} + {RTOL}*|plain|)")
         if pool_dtype == torch.bfloat16:
+            fn = K["paged_prefill_attention"]
             ms = timed_ms(torch, lambda: fn(qc, k, v, bt, start,
                                             rope_theta=ROPE_THETA))
             plain_ms = timed_ms(torch, lambda: ref.paged_prefill_attention_ref(
@@ -418,6 +506,31 @@ def paged_kernel_phase(torch, F, K, ref, gen, dev, out):
                 err, ms, plain_ms,
                 prefill_bound_entry(PREFILL_STARTS, B * NB * 4),
                 lib_ms)
+
+
+def scenario_kernel_cases(torch, K, ref, gen, dev):
+    """Kernels #1 and #2 at every geometry the Scenario runs them at
+    (SCENARIO_SHAPES), bfloat16 pools: decode rows shorter than a page,
+    across a page and across the whole table, and an idle row; prefill
+    chunks from 0, across a page, past two pages and ending at the table's
+    last position. The page does not enter the shared-memory reckoning,
+    which reckoning_check holds at every G and d of these shapes."""
+    errs = {"paged_decode_attention": [], "paged_prefill_attention": []}
+    for shape in SCENARIO_SHAPES:
+        dec, _ = paged_decode_case(
+            torch, K, ref, gen, dev, shape,
+            [5, shape.page + 3, shape.cap, 0], torch.bfloat16)
+        pre, _ = paged_prefill_case(
+            torch, K, ref, gen, dev, shape,
+            [0, shape.page - 3, 2 * shape.page + 5, shape.cap - shape.c],
+            torch.bfloat16)
+        errs["paged_decode_attention"].append(dec)
+        errs["paged_prefill_attention"].append(pre)
+        log(f"paged kernels at the Scenario's {shape.label} (H {shape.h}, "
+            f"KV {shape.kv}, d {shape.d}, chunk {shape.c}, {shape.nb} table "
+            f"entries, bf16 pool): max abs err decode {dec:.3e}, prefill "
+            f"{pre:.3e} (tol {ATOL} + {RTOL}*|plain|), repeats bitwise equal")
+    return {name: max(e) for name, e in errs.items()}
 
 
 def contiguous_kernel_phase(torch, F, K, ref, gen, dev, out):
@@ -652,6 +765,8 @@ def kernel_phase(torch, F, K, ref):
     gen = torch.Generator(device=dev).manual_seed(1234)
     out = {}
     paged_kernel_phase(torch, F, K, ref, gen, dev, out)
+    for name, err in scenario_kernel_cases(torch, K, ref, gen, dev).items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     contiguous_kernel_phase(torch, F, K, ref, gen, dev, out)
     ssd_kernel_phase(torch, K, ref, gen, dev, out)
     flash_kernel_phase(torch, F, K, ref, gen, dev, out)
@@ -997,6 +1112,23 @@ def serve_phase(torch, serve, K, path):
     return engine, {k: launches[k] for k in spec["kernels"]}
 
 
+def device_rows(torch, prof, n):
+    """(ms a call, launches a call, name) of each kernel the profiler saw
+    on the device over ``n`` calls, longest first."""
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only: the CPU ops that launched them carry
+        # the same time again
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0:
+            rows.append((t / n / 1e3, e.count // n, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
 def profile_dispatches(torch, what, calls, n=10):
     """Host wall time per dispatch, the device time the profiler sees in
     the same calls, and the kernels that take most of it (``n`` calls
@@ -1016,17 +1148,7 @@ def profile_dispatches(torch, what, calls, n=10):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        rows = []
-        for e in prof.key_averages():
-            # device-side events only: the CPU ops that launched them carry
-            # the same time again
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            t = getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0.0))
-            if t > 0:
-                rows.append((t / n / 1e3, e.count // n, e.key))
-        rows.sort(reverse=True)
+        rows = device_rows(torch, prof, n)
         dev_ms = sum(r[0] for r in rows)
         log(f"profile {what} {name} (full width, B={B}): host wall "
             f"{wall_ms:.3f} ms/dispatch, device busy {dev_ms:.3f} ms "
@@ -1112,13 +1234,14 @@ def card_vs_cpu(torch, what, run, card_params):
         f"by up to {effect:.3e}; checks took {time.monotonic() - t0:.1f}s")
 
 
-def step_inputs(torch, vocab):
-    """A 16-token prefill chunk of 4 rows (row 2 tail-padded to 9 real
-    tokens) from an empty cache, then a decode step with row 3 idle."""
+def step_inputs(torch, vocab, c=C):
+    """A ``c``-token prefill chunk of 4 rows (row 2 tail-padded to c/2 + 1
+    real tokens) from an empty cache, then a decode step with row 3
+    idle."""
     gen = torch.Generator().manual_seed(7)
-    tokens = torch.randint(0, vocab, (B, C), generator=gen,
+    tokens = torch.randint(0, vocab, (B, c), generator=gen,
                            dtype=torch.int32)
-    valid = torch.tensor([C, C, 9, C], dtype=torch.int32)
+    valid = torch.tensor([c, c, c // 2 + 1, c], dtype=torch.int32)
     nxt = torch.randint(0, vocab, (B, 1), generator=gen, dtype=torch.int32)
     act_dec = torch.tensor([True, True, True, False])
     return tokens, valid, nxt, act_dec
@@ -1132,18 +1255,19 @@ def real_logits(torch, pf, dec, valid, act_dec):
     return torch.cat(keep).float().cpu()
 
 
-def card_vs_cpu_phase(torch, paged_engine, contiguous_engine, mamba_engine):
-    from repro_torch.models import mamba_lm, transformer
+def paged_steps(torch, cfg, page, nb, c):
+    """card_vs_cpu's run on the paged cache: a ``c``-token prefill chunk
+    and a decode step of 4 rows, two pages of ``page`` a row in an
+    ``nb``-entry table."""
+    from repro_torch.models import transformer
     zeros = torch.zeros((B,), dtype=torch.int32)
     act_pf = torch.ones((B,), dtype=torch.bool)
-
-    cfg = paged_engine.cfg
-    tokens, valid, nxt, act_dec = step_inputs(torch, cfg.vocab_size)
-    bt = torch.zeros((B, NB), dtype=torch.int32)
+    tokens, valid, nxt, act_dec = step_inputs(torch, cfg.vocab_size, c)
+    bt = torch.zeros((B, nb), dtype=torch.int32)
     bt[:, :2] = torch.arange(1, 2 * B + 1, dtype=torch.int32).reshape(B, 2)
 
     def paged(params, dev, cache_dtype):
-        cache = transformer.init_paged_cache(cfg, 2 * B + 1, PAGE, dev,
+        cache = transformer.init_paged_cache(cfg, 2 * B + 1, page, dev,
                                              cache_dtype)
         on = (lambda t: t.to(dev))
         pf, _ = transformer.prefill_chunk_paged(
@@ -1152,6 +1276,17 @@ def card_vs_cpu_phase(torch, paged_engine, contiguous_engine, mamba_engine):
         dec, _ = transformer.decode_step_paged(
             params, cache, on(nxt), on(valid), on(bt), cfg, on(act_dec))
         return real_logits(torch, pf, dec, valid, act_dec)
+
+    return paged
+
+
+def card_vs_cpu_phase(torch, paged_engine, contiguous_engine, mamba_engine):
+    from repro_torch.models import mamba_lm, transformer
+    zeros = torch.zeros((B,), dtype=torch.int32)
+    act_pf = torch.ones((B,), dtype=torch.bool)
+
+    cfg = paged_engine.cfg
+    tokens, valid, nxt, act_dec = step_inputs(torch, cfg.vocab_size)
 
     def contiguous(params, dev, cache_dtype):
         cache = transformer.init_cache(cfg, B, 4 * C, dev, cache_dtype)
@@ -1163,7 +1298,8 @@ def card_vs_cpu_phase(torch, paged_engine, contiguous_engine, mamba_engine):
                                          cfg, on(act_dec))
         return real_logits(torch, pf, dec, valid, act_dec)
 
-    card_vs_cpu(torch, "paged tinyllama-1.1b", paged, paged_engine.params)
+    card_vs_cpu(torch, "paged tinyllama-1.1b",
+                paged_steps(torch, cfg, PAGE, NB, C), paged_engine.params)
     card_vs_cpu(torch, "contiguous tinyllama-1.1b", contiguous,
                 contiguous_engine.params)
 
@@ -1482,6 +1618,269 @@ def training_card_vs_cpu_phase(torch):
     torch.cuda.empty_cache()
 
 
+
+# ------------------------------------------------------------ phase 5b
+#: the paper's three-app concurrent workload (benchmarks/common.py,
+#: standard_scenario at its smoke counts) under the five fig5 policies
+FIG5_APPS = (("chatbot", 2), ("imagegen", 2), ("live_captions", 5))
+FIG5_POLICIES = ("greedy", "static", "slo_aware", "weighted_fair",
+                 "preemptive_priority")
+FULL_WIDTH_POLICY = "slo_aware"
+#: steps of the full-width run profiled for the device's idle share
+PROFILE_FROM, PROFILE_STEPS = 20, 10
+
+
+def fig5_scenario(policy: str):
+    from repro_torch.bench import Scenario, ScenarioApp
+    return Scenario(name="fig5_concurrent", mode="concurrent", policy=policy,
+                    total_chips=256, chip="tpu-v5e", substrate="engine",
+                    apps=[ScenarioApp(app_type=t, num_requests=n)
+                          for t, n in FIG5_APPS])
+
+
+class StepWindow:
+    """Profiles engine steps [start, start + n) of a run, counted over
+    every partition's engine: host wall on the host clock between two
+    synchronisations, device busy the sum of the profiler's device kernel
+    times in between."""
+
+    def __init__(self, torch, start: int, n: int):
+        self.torch, self.start, self.n = torch, start, n
+        self.seen = 0
+        self.prof = None
+        self.wall_ms = self.busy_ms = None
+
+    def before(self) -> None:
+        if self.seen == self.start:
+            from torch.profiler import ProfilerActivity, profile
+            self.torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.start()
+            self.t0 = time.monotonic()
+
+    def after(self) -> None:
+        self.seen += 1
+        if self.prof is not None and self.seen == self.start + self.n:
+            self.torch.cuda.synchronize()
+            self.wall_ms = (time.monotonic() - self.t0) * 1e3
+            self.prof.stop()
+            self.busy_ms = sum(t for t, _, _ in device_rows(
+                self.torch, self.prof, 1))
+            self.prof = None
+
+
+def recording_engines(runner, engines: list, window=None):
+    """An InferenceEngine that appends itself to ``engines`` (so the phase
+    can read each partition's geometry after a run) and steps through
+    ``window`` when one is given; the runner's own class is restored by
+    the caller."""
+    base = runner.InferenceEngine
+
+    class Recorded(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            engines.append(self)
+
+        def step(self):
+            if window is not None:
+                window.before()
+            out = super().step()
+            if window is not None:
+                window.after()
+            return out
+
+    return Recorded
+
+
+def scenario_run(torch, K, runner, policy, device, window=None):
+    """One fig5 Scenario through run_scenario_on_engine on ``device``, the
+    launch counts set to 0 just before it; returns the document, the
+    partitions' EngineStats, the engines and the wall seconds."""
+    base = runner.InferenceEngine
+    engines: list = []
+    runner.InferenceEngine = recording_engines(runner, engines, window)
+    try:
+        zero_counts(K)
+        t0 = time.monotonic()
+        res = runner.run_scenario_on_engine(fig5_scenario(policy),
+                                            device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        runner.InferenceEngine = base
+    return res.to_json(), res.engine_stats, engines, wall
+
+
+def scenario_launches(K, what, stats, layers) -> dict:
+    """The paged kernels' launches in the Scenario run just made: exactly
+    layers x the decode dispatches (one a decode sync) and layers x the
+    prefill dispatches summed over the partitions' EngineStats; no other
+    kernel."""
+    return check_launches(K, what, {
+        "paged_decode_attention":
+        layers * sum(s.decode_syncs for s in stats.values()),
+        "paged_prefill_attention":
+        layers * sum(s.prefill_dispatches for s in stats.values())})
+
+
+def token_streams(engines) -> list:
+    """Each engine's finished requests: app, id, generated token ids and
+    their (virtual) times."""
+    return [sorted((r.app, r.request_id, list(r.tokens_out), r.t_tokens)
+                   for r in e.done) for e in engines]
+
+
+def check_geometry(what, engines) -> None:
+    """Every partition's engine ran the paged kernels at a geometry that
+    phase 3 held against their plain versions (SCENARIO_SHAPES): the same
+    heads, head dim, chunk and page, and no more table entries."""
+    for e in engines:
+        cfg = e.cfg
+        key = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+               e.prefill_chunk, e.page_size)
+        entries = e.allocator.max_blocks if e.paged else None
+        if not e.paged or not any(
+                (s.h, s.kv, s.d, s.c, s.page) == key and entries <= s.nb
+                for s in SCENARIO_SHAPES):
+            fail(f"{what}: an engine ran at (H, KV, d, chunk, page) {key} "
+                 f"with {entries} table entries, a geometry phase 3 did not "
+                 "check")
+
+
+def vehicle_card_vs_cpu(torch, runner) -> None:
+    """The vehicle is one model on both devices: its weights on the card
+    equal the CPU's bit for bit, and one prefill chunk (the runner's chunk)
+    and one decode step at the tuner's page 256 give logits that agree
+    within phase 4's tolerances (card_vs_cpu)."""
+    _, card, cfg = runner.engine_model("cuda")
+    _, cpu, _ = runner.engine_model("cpu")
+    card_leaves, cpu_leaves = [], []
+    _tree(card, card_leaves.append)
+    _tree(cpu, cpu_leaves.append)
+    if len(card_leaves) != len(cpu_leaves) or not all(
+            a.is_cuda and torch.equal(a.cpu(), b)
+            for a, b in zip(card_leaves, cpu_leaves)):
+        fail("scenario vehicle: the card's weights differ from the CPU's")
+    card_vs_cpu(torch, "scenario vehicle (page 256)",
+                paged_steps(torch, cfg, 256, 5, runner.ENGINE_PREFILL_CHUNK),
+                card)
+
+
+def doc_diff(a, b, path="") -> list[str]:
+    """Paths at which two JSON documents differ."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return [d for k in sorted(set(a) | set(b))
+                for d in doc_diff(a.get(k), b.get(k), f"{path}.{k}")]
+    if isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in doc_diff(x, y, f"{path}[{i}]")]
+    return [] if a == b else [path]
+
+
+def geometry(engines) -> str:
+    return ", ".join(f"{e.paged and 'paged' or 'contiguous'} page "
+                     f"{e.page_size} x {e.kv_pages} max-seq {e.max_seq}"
+                     for e in engines)
+
+
+def scenario_phase(torch, K):
+    """(a) The five fig5 policies on the reference vehicle
+    (engine_runner.engine_model: reduced tinyllama-1.1b, 2 layers) on the
+    card and on the CPU in this process: the two documents must be equal
+    (all timing is the runner's virtual clock), and the paged kernels must
+    have run exactly as the card run's EngineStats dictate. (b) slo_aware
+    with the vehicle replaced by full-width tinyllama-1.1b (22 layers,
+    d_model 2048, 32 heads over 4 KV heads of 64; random float32 weights
+    from seed 0), substituted for the runner's engine_model here: per-app
+    latencies, SLO attainment and the makespan must equal (a)'s; any other
+    field that differs is printed by name. A window of its steps is
+    profiled for the device's idle share."""
+    from repro_torch.bench import engine_runner as runner
+    from repro_torch.kernels import build
+    # the tuner's picks come from its roofline; its cache stays in the
+    # checkout (the build directory), fresh for this run
+    cache = build.BUILD_DIR / "autotune.json"
+    cache.unlink(missing_ok=True)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(cache)
+    launches: dict = {}
+    docs = {}
+    for policy in FIG5_POLICIES:
+        what = f"scenario {policy} (vehicle)"
+        card, stats, engines, wall = scenario_run(torch, K, runner, policy,
+                                                  "cuda")
+        want = scenario_launches(K, what, stats, runner.ENGINE_LAYERS)
+        add_counts(launches, want)
+        check_geometry(what, engines)
+        cpu, _, cpu_engines, cpu_wall = scenario_run(torch, K, runner,
+                                                     policy, "cpu")
+        diff = doc_diff(card, cpu)
+        if diff:
+            fail(f"{what}: card and CPU documents differ at {diff[:10]}")
+        streams = token_streams(engines)
+        if streams != token_streams(cpu_engines):
+            fail(f"{what}: the card's token streams differ from the CPU's")
+        docs[policy] = card
+        log(f"{what}: card {wall:.2f}s, CPU {cpu_wall:.2f}s wall; "
+            f"documents and token streams equal "
+            f"({sum(len(t) for e in streams for _, _, t, _ in e)} tokens); "
+            f"steps "
+            f"{sum(s.steps for s in stats.values())}, decode dispatches "
+            f"{sum(s.decode_syncs for s in stats.values())}, prefill "
+            f"dispatches {sum(s.prefill_dispatches for s in stats.values())}"
+            f"; engines: {geometry(engines)}")
+        for label, sim in card["results"].items():
+            apps = {a: (r["slo_attainment"], round(r["p50"], 4))
+                    for a, r in sim["apps"].items()}
+            log(f"  {label}: makespan {sim['makespan_s']:.4f} s "
+                f"(virtual clock, the simulated tpu-v5e's model); "
+                f"(SLO attainment, p50 normalised latency) {apps}")
+
+    vehicle_card_vs_cpu(torch, runner)
+
+    model, params = tinyllama(torch)
+    vehicle = runner.engine_model
+    runner.engine_model = lambda device="cuda": (model, params, model.cfg)
+    window = StepWindow(torch, PROFILE_FROM, PROFILE_STEPS)
+    try:
+        what = f"scenario {FULL_WIDTH_POLICY} (full width)"
+        full, stats, engines, wall = scenario_run(
+            torch, K, runner, FULL_WIDTH_POLICY, "cuda", window)
+    finally:
+        runner.engine_model = vehicle
+    cfg = model.cfg
+    if (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim) != (22, 2048, 32, 4, 64):
+        fail(f"{what}: {cfg.name} is not at full width")
+    add_counts(launches, scenario_launches(K, what, stats, cfg.num_layers))
+    check_geometry(what, engines)
+    ref_doc = docs[FULL_WIDTH_POLICY]
+    diff = doc_diff(ref_doc, full)
+    pinned = [d for d in diff if ".apps." in d or d.endswith(".makespan_s")]
+    if pinned:
+        fail(f"{what}: latencies, SLO attainment or makespan differ from "
+             f"the vehicle's at {pinned[:10]}")
+    steps = sum(s.steps for s in stats.values())
+    log(f"{what}: {wall:.2f}s wall, {steps} steps ({wall / steps * 1e3:.2f}"
+        f" ms host wall a step), decode dispatches "
+        f"{sum(s.decode_syncs for s in stats.values())}, prefill dispatches "
+        f"{sum(s.prefill_dispatches for s in stats.values())}; engines: "
+        f"{geometry(engines)}")
+    log(f"{what}: per-app latencies, SLO attainment and makespan equal the "
+        f"vehicle's; other fields that differ: {diff or 'none'}")
+    if window.wall_ms is None:
+        fail(f"{what}: the run took fewer than "
+             f"{PROFILE_FROM + PROFILE_STEPS} steps to profile")
+    log(f"{what}: profiled steps {PROFILE_FROM}-"
+        f"{PROFILE_FROM + PROFILE_STEPS - 1}: host wall "
+        f"{window.wall_ms / PROFILE_STEPS:.3f} ms a step, device busy "
+        f"{window.busy_ms / PROFILE_STEPS:.3f} ms a step, device idle "
+        f"{100 * (1 - window.busy_ms / window.wall_ms):.1f}%")
+    del model, params
+    torch.cuda.empty_cache()
+    return launches
+
 # --------------------------------------------------------------------- main
 KERNELS = {
     "paged_decode_attention": dict(
@@ -1564,6 +1963,7 @@ def main() -> None:
     card_vs_cpu_phase(torch, *engines.values())
     del engines
     torch.cuda.empty_cache()
+    add_counts(launches, scenario_phase(torch, K))
     add_counts(launches, rmsnorm_path_phase(torch, K))
     add_counts(launches, prefill_phase(torch, K))
     add_counts(launches, train_phase(torch, K))

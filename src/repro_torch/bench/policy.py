@@ -5,10 +5,10 @@ scheduler, redesigned as one API).
 
 A :class:`SchedulingPolicy` is consumed by BOTH execution substrates:
 
-* the discrete-event :class:`~repro.core.simulator.PodSimulator` (pod-scale
+* the discrete-event :class:`~repro_torch.core.simulator.PodSimulator` (pod-scale
   roofline numbers) via the ``partition`` / ``priority`` / ``chunk_fraction``
   / ``on_dispatch`` hooks, and
-* the real-JAX :class:`~repro.serving.engine.InferenceEngine` (continuous
+* the real-JAX :class:`~repro_torch.serving.engine.InferenceEngine` (continuous
   batching) via ``admit_order`` / ``prefill_chunk_tokens`` /
   ``exclusive_prefill``.
 
@@ -61,7 +61,9 @@ import warnings
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Iterable, Optional, Union
 
-if TYPE_CHECKING:  # pragma: no cover - typing only
+if TYPE_CHECKING:  # pragma: no cover - typing only, avoids import cycles
+    from repro_torch.core.costs import WorkItem
+    from repro_torch.core.simulator import AppTrace, SimRequest
     from repro_torch.serving.request import Request
 
 _REGISTRY: dict[str, type["SchedulingPolicy"]] = {}
@@ -255,10 +257,10 @@ class SchedulingPolicy:
     # ------------------------------------------------- degradation hook
     def shed_decision(self, app: str, req, attainment: float,
                       cfg, now: float) -> str:
-        """Graceful-degradation triage (repro.resilience), consulted by
+        """Graceful-degradation triage (repro_torch.resilience), consulted by
         BOTH substrates at admission time once the app's rolling SLO
         attainment has crossed ``cfg.attainment`` (a
-        :class:`~repro.resilience.ShedConfig`). Return ``"shed"`` to drop
+        :class:`~repro_torch.resilience.ShedConfig`). Return ``"shed"`` to drop
         the request, ``"downgrade"`` to demote it to background priority,
         or ``"admit"`` to wave it through anyway. The default honours the
         scenario's configured action; policies override for smarter

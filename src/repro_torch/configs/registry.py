@@ -1,15 +1,21 @@
-"""Registry of the architectures the port serves.
-
-The JAX registry (``repro.configs.registry``) holds all ten assigned
-architectures; the port registers those of the families its serving path
-runs so far — the dense transformers and mamba2 (ssm). The other families
-are ROADMAP work.
-"""
+# Copy of src/repro/configs/registry.py: the PyTorch port keeps its own copies and imports
+# nothing of the JAX package.
+"""Registry of the ten assigned architectures."""
 from __future__ import annotations
 
-from repro_torch.configs import (mamba2_1_3b, qwen3_14b, stablelm_3b,
-                                 stablelm_12b, tinyllama_1_1b)
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs import (
+    mamba2_1_3b,
+    tinyllama_1_1b,
+    stablelm_12b,
+    qwen3_14b,
+    stablelm_3b,
+    jamba_v0_1_52b,
+    chameleon_34b,
+    seamless_m4t_large_v2,
+    moonshot_v1_16b_a3b,
+    kimi_k2_1t_a32b,
+)
 
 _MODULES = (
     mamba2_1_3b,
@@ -17,6 +23,11 @@ _MODULES = (
     stablelm_12b,
     qwen3_14b,
     stablelm_3b,
+    jamba_v0_1_52b,
+    chameleon_34b,
+    seamless_m4t_large_v2,
+    moonshot_v1_16b_a3b,
+    kimi_k2_1t_a32b,
 )
 
 CONFIGS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}

@@ -156,6 +156,12 @@ class ModelBundle:
         return transformer.init_paged_cache(self.cfg, num_pages, page_size,
                                             self.device, dtype)
 
+    def kv_bytes_per_token(self, dtype_bytes: int = 2) -> int:
+        """Device bytes ONE cached token costs across all paged layers —
+        what sizes the page pool against a memory budget."""
+        from repro_torch.roofline.hw import kv_bytes_per_token
+        return kv_bytes_per_token(self.cfg, dtype_bytes)
+
     def decode_step_paged(self, params: Params, cache: Cache,
                           tokens: torch.Tensor, lengths: torch.Tensor,
                           block_tables: torch.Tensor,

@@ -10,7 +10,16 @@ scheduling through the pluggable
 preempt-to-evict with token-identical recompute, radix prefix sharing with
 copy-on-write forks, decode-stall accounting and trace-recorder events —
 and the same :class:`EngineStats` counters. On the same weights and
-requests it emits the JAX engine's token streams.
+requests it emits the JAX engine's token streams. It also carries the
+JAX engine's options for the Scenario runner
+(:mod:`repro_torch.bench.engine_runner`) and the resilience layer: the
+virtual cost clock (``step_cost_s``/``request_cost_s``, ``time_warp``,
+:meth:`advance_to`), eviction watermarks, fault hooks (:meth:`crash_active`,
+:meth:`abort`, :meth:`steal_pages`), the router's :meth:`prefix_peek`, and
+per-partition telemetry (``recorder_chips``, ``recorder_label``,
+``request_work``). ``prefill_chunk=None`` and, on the paged cache,
+``page_size=None`` take the autotuner's picks
+(:mod:`repro_torch.kernels.autotune`), as in the JAX engine.
 
 What differs:
 
@@ -19,13 +28,9 @@ What differs:
     pools IN PLACE (``self.cache`` keeps the same tensors);
   * the engine runs on the model's device; on CUDA every layer's attention
     goes through the hand-written paged kernels (``repro_torch.kernels``);
-  * ``prefill_chunk``, and ``page_size`` on the paged cache, must be
-    given — the JAX engine's TPU autotuner (``repro.kernels.autotune``) is
-    not ported;
-  * the clock is the wall clock. The JAX engine's virtual cost clock,
-    eviction watermarks and fault hooks (crash replay, page stealing,
-    aborts, router probes) serve its scenario runner and resilience
-    layer, which are not ported yet (ROADMAP.md).
+  * on the wall clock (no cost functions) a dispatch's span starts before
+    the dispatch and a decode step's time is read after its argmax reaches
+    the host: the card runs behind the host until that sync.
 
 Hot path, as in the JAX engine: one ``prefill_chunk[_paged]`` dispatch per
 chunk (``stats.prefill_dispatches``), one full-batch ``decode_step[_paged]``
@@ -39,12 +44,13 @@ from __future__ import annotations
 import math
 import time as _time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.bench.policy import SchedulingPolicy, get_policy
+from repro_torch.kernels import autotune
 from repro_torch.models.factory import ModelBundle
 from repro_torch.serving.block_allocator import BlockAllocator, PoolExhausted
 from repro_torch.serving.prefix_cache import PrefixCache
@@ -66,6 +72,7 @@ class EngineStats:
     prefix_hit_tokens: int = 0    # prefill tokens served from the trie
     shared_pages: int = 0         # cached pages mapped into admitted slots
     cow_forks: int = 0            # shared pages forked on first write
+    replays: int = 0              # in-flight requests replayed after a crash
     # ---- mixed batching (policy.step_budget; schema-1.7 batching block)
     budget_enabled: bool = False  # a step_budget split was ever applied
     mixed_steps: int = 0          # steps advancing BOTH prefill and decode
@@ -78,44 +85,75 @@ class InferenceEngine:
                  max_seq: int = 256,
                  policy: "str | SchedulingPolicy" = "fcfs",
                  prefill_chunk: Optional[int] = None,
+                 step_cost_s: Optional[Callable[[str, int], float]] = None,
+                 request_cost_s: Optional[
+                     Callable[[Request, str, int], float]] = None,
                  paged: Optional[bool] = None,
                  prefix_cache: bool = False,
                  kv_pages: Optional[int] = None,
                  page_size: Optional[int] = None,
-                 recorder: Optional[TraceRecorder] = None):
+                 evict_high_watermark: float = 1.0,
+                 evict_low_watermark: Optional[float] = None,
+                 recorder: Optional[TraceRecorder] = None,
+                 recorder_chips: int = 1,
+                 recorder_label: str = "",
+                 request_work: Optional[
+                     Callable[[Request, str, int],
+                              "tuple[float, float]"]] = None,
+                 time_warp: Optional[
+                     Callable[[float, float], float]] = None):
         #: telemetry: when a recorder is attached the engine emits
         #: admit/evict instants, one span per prefill-chunk dispatch and
-        #: per decoded row, and a KV-occupancy counter (``kv_pages@``, the
-        #: JAX engine's name with no partition label). recorder=None
-        #: (default) keeps every emit site a single None check.
+        #: per decoded row, and a per-pool KV-occupancy counter
+        #: (``kv_pages@<label>``). ``request_work(req, kind, tokens) ->
+        #: (flops, hbm_bytes)`` resolves the work each span moved.
+        #: recorder=None (default) keeps every emit site a single None
+        #: check.
         self._recorder = recorder
+        self._recorder_chips = recorder_chips
+        self._recorder_label = recorder_label
+        self._req_work = request_work
         self.model = model
         self.cfg = model.cfg
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.policy = get_policy(policy)
+        if prefill_chunk is None:
+            # roofline-autotuned per model, as in the JAX engine
+            prefill_chunk = autotune.engine_prefill_chunk(model.cfg,
+                                                          max_seq=max_seq)
+        self.prefill_chunk = prefill_chunk
+        self.device = model.device
+        self._step_cost = step_cost_s
+        self._req_cost = request_cost_s
+        #: fault integrator (repro_torch.resilience): maps ``(t0, nominal_s)
+        #: -> t1`` so thermal derating / stall windows stretch the virtual
+        #: clock
+        self._time_warp = time_warp
+        self._use_vclock = step_cost_s is not None or request_cost_s is not None
+        self._vclock = 0.0
+        self._t0 = _time.monotonic()
+        self.stats = EngineStats()
+        self._last_decode_t: Optional[float] = None
+
         if paged is None:
             paged = model.cache_pages()
         elif paged and not model.cache_pages():
             raise ValueError(
                 f"family {self.cfg.family!r} cannot page its cache "
                 "(no growing KV)")
-        if prefill_chunk is None or (paged and page_size is None):
-            # the JAX engine asks its TPU autotuner (repro.kernels.autotune)
-            # for these; the port has no tuner yet (ROADMAP.md)
-            raise ValueError("prefill_chunk (and page_size, on the paged "
-                             "cache) must be given: the autotuner that "
-                             "picks them is not ported")
-        self.prefill_chunk = prefill_chunk
-        self.device = model.device
-        self._t0 = _time.monotonic()
-        self.stats = EngineStats()
-        self._last_decode_t: Optional[float] = None
-
         self.paged = paged
         self.params = None
         self.allocator: Optional[BlockAllocator] = None
         if paged:
+            if page_size is None:
+                kv = max(self.cfg.num_kv_heads, 1)
+                page_size = autotune.best_config(
+                    "paged_decode_attention",
+                    {"b": max_slots, "kv": kv,
+                     "g": max(self.cfg.num_heads // kv, 1),
+                     "s": max_seq,
+                     "d": self.cfg.resolved_head_dim})["page_size"]
             page_size = min(page_size, max_seq)
             max_blocks = math.ceil(max_seq / page_size)
             # default pool reproduces the contiguous capacity exactly (one
@@ -125,8 +163,10 @@ class InferenceEngine:
                 kv_pages = max_slots * max_blocks
             self.page_size = page_size
             self.kv_pages = kv_pages
-            self.allocator = BlockAllocator(kv_pages, page_size, max_slots,
-                                            max_blocks)
+            self.allocator = BlockAllocator(
+                kv_pages, page_size, max_slots, max_blocks,
+                high_watermark=evict_high_watermark,
+                low_watermark=evict_low_watermark)
             if prefix_cache and not model.prefix_shareable():
                 raise ValueError(
                     f"family {self.cfg.family!r} cannot share prefixes: "
@@ -192,7 +232,32 @@ class InferenceEngine:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def now(self) -> float:
-        return _time.monotonic() - self._t0
+        return self._vclock if self._use_vclock else _time.monotonic() - self._t0
+
+    def _advance(self, kind: str, tokens: int,
+                 req: Optional[Request] = None):
+        if not self._use_vclock:
+            return
+        if self._req_cost is not None and req is not None:
+            cost = self._req_cost(req, kind, tokens)
+        elif self._step_cost is not None:
+            cost = self._step_cost(kind, tokens)
+        else:
+            return
+        if self._time_warp is not None:
+            self._vclock = self._time_warp(self._vclock, cost)
+        else:
+            self._vclock += cost
+
+    def advance_to(self, t: float) -> None:
+        """Jump the virtual clock forward to ``t`` (idle gap to the next
+        arrival); no-op on wall-clock engines or when ``t`` is in the past.
+        Resets the decode-gap tracker: idle waiting is not a stall, so
+        ``stats.max_decode_gap_s`` keeps measuring scheduling-induced
+        decode starvation only."""
+        if self._use_vclock and t > self._vclock:
+            self._vclock = t
+            self._last_decode_t = None
 
     # ------------------------------------------------------------ intake
     def submit(self, req: Request):
@@ -206,14 +271,25 @@ class InferenceEngine:
     # --------------------------------------------------------- telemetry
     def _emit_span(self, kind: str, req: Request, tokens: int,
                    t0: float, t1: float) -> None:
-        if self._recorder is not None:
-            self._recorder.span(kind, req.app, req.request_id, t0, t1,
-                                chips=1, tokens=tokens)
+        r = self._recorder
+        if r is None:
+            return
+        fl = by = ici = 0.0
+        if self._req_work is not None:
+            # the hook returns (flops, hbm_bytes) or, for spans that move
+            # interconnect traffic, (flops, hbm_bytes, ici_bytes)
+            work = self._req_work(req, kind, tokens)
+            fl, by = work[0], work[1]
+            if len(work) > 2:
+                ici = work[2]
+        r.span(kind, req.app, req.request_id, t0, t1,
+               chips=self._recorder_chips, flops=fl, hbm_bytes=by,
+               tokens=tokens, ici_bytes=ici)
 
     def _emit_kv(self) -> None:
-        if self._recorder is not None:
-            self._recorder.counter("kv_pages@", self.now(),
-                                   self.allocator.pages_in_use)
+        if self._recorder is not None and self.allocator is not None:
+            self._recorder.counter(f"kv_pages@{self._recorder_label}",
+                                   self.now(), self.allocator.pages_in_use)
 
     # ------------------------------------------------------------- paged
     def _effective_prompt(self, req: Request) -> np.ndarray:
@@ -232,20 +308,28 @@ class InferenceEngine:
                                np.asarray(replay, np.int32)])
 
     def _note_pages(self) -> None:
-        self.stats.pages_in_use = max(self.stats.pages_in_use,
-                                      self.allocator.pages_in_use)
+        if self.allocator is not None:
+            self.stats.pages_in_use = max(self.stats.pages_in_use,
+                                          self.allocator.pages_in_use)
 
-    def _evict(self, victim: int) -> None:
+    def _evict(self, victim: int, *, crash: bool = False) -> None:
         """Preempt-to-evict: free the victim slot's pages and requeue its
-        request; the tokens it had cached are recomputed on re-admission."""
+        request; the tokens it had cached are recomputed on re-admission.
+        ``crash=True`` is the fault-injection variant (partition lost its
+        state): the same mechanism, counted as ``stats.replays`` and traced
+        as a ``replay`` instant, because a crash is not a memory event."""
         req = self.active[victim]
-        self.stats.evictions += 1
+        if crash:
+            self.stats.replays += 1
+        else:
+            self.stats.evictions += 1
         self.stats.recompute_tokens += int(self.lengths[victim])
         if self._recorder is not None:
-            self._recorder.instant("evict", req.app, req.request_id,
-                                   self.now(),
+            self._recorder.instant("replay" if crash else "evict",
+                                   req.app, req.request_id, self.now(),
                                    tokens=int(self.lengths[victim]))
-        self.allocator.free_slot(victim)
+        if self.allocator is not None:
+            self.allocator.free_slot(victim)
         self.active[victim] = None
         self._partial.pop(victim, None)
         self._eff.pop(victim, None)
@@ -254,6 +338,97 @@ class InferenceEngine:
         self.lengths = new_lengths
         self.waiting.insert(0, req)
         self._emit_kv()
+
+    # ------------------------------------------------------------- faults
+    def crash_active(self) -> int:
+        """Partition crash (``engine_stall`` with ``crash: true``): every
+        active slot loses its in-flight state and replays from scratch on
+        recovery. Returns how many requests were killed (requeued at the
+        head of the waiting queue)."""
+        n = 0
+        for i, r in enumerate(self.active):
+            if r is not None:
+                self._evict(i, crash=True)
+                n += 1
+        return n
+
+    def abort(self, request_id: int) -> Optional[Request]:
+        """Client-side abort (timeout / cancellation): drop the request
+        wherever it is — waiting queue or active slot — freeing its pages
+        WITHOUT publishing its prefix. Returns the request so the caller
+        can reset and resubmit it, or None when it is unknown or already
+        finished."""
+        for i, r in enumerate(self.waiting):
+            if r.request_id == request_id:
+                return self.waiting.pop(i)
+        for i, r in enumerate(self.active):
+            if r is not None and r.request_id == request_id:
+                if self.allocator is not None:
+                    self.allocator.free_slot(i)
+                self.active[i] = None
+                self._partial.pop(i, None)
+                self._eff.pop(i, None)
+                new_lengths = self.lengths.copy()
+                new_lengths[i] = 0
+                self.lengths = new_lengths
+                self._emit_kv()
+                return r
+        return None
+
+    def steal_pages(self, n: int) -> int:
+        """External memory pressure (``memory_spike``): an outside tenant
+        reserves ``n`` pages out of this engine's pool. Free pages go
+        first, then cold cached prefixes, then live LRU slots are evicted
+        to make room; the allocator only ever hands over FREE-list pages,
+        so shared pages with live readers are structurally safe. Returns
+        how many pages were actually taken."""
+        alloc = self.allocator
+        if alloc is None or n <= 0:
+            return 0
+        got = alloc.reserve(n)
+        while got < n:
+            if self.prefix is not None and self.prefix.evict_cold(1):
+                got += alloc.reserve(n - got)
+                continue
+            victim = alloc.lru_victim()
+            if victim is None:
+                break
+            self._evict(victim)
+            got += alloc.reserve(n - got)
+        self._note_pages()
+        self._emit_kv()
+        return got
+
+    def release_stolen(self) -> int:
+        """Spike end: the external tenant returns every reserved page."""
+        alloc = self.allocator
+        if alloc is None:
+            return 0
+        n = alloc.release_reserved()
+        if n:
+            self._emit_kv()
+        return n
+
+    def _rebalance(self, protect: set[int]) -> None:
+        """Watermark policy: once the pool hits the high watermark, evict
+        LRU slots until usage falls below the low watermark (no-op at the
+        default high_watermark=1.0, where eviction is purely on-demand)."""
+        alloc = self.allocator
+        if alloc is None or alloc.high_watermark >= 1.0:
+            return
+        if not alloc.over_high_watermark():
+            return
+        if self.prefix is not None:
+            # cold cached prefixes are the cheapest pages on the pool:
+            # reclaim them before preempting any live slot
+            excess = alloc.pages_in_use - int(
+                alloc.low_watermark * alloc.num_pages)
+            self.prefix.evict_cold(excess)
+        while alloc.over_low_watermark():
+            victim = alloc.lru_victim(exclude=protect)
+            if victim is None:
+                break
+            self._evict(victim)
 
     def _grow_pages(self, slot: int, tokens: int) -> bool:
         """Ensure the slot's block table covers ``tokens``; reclaims cold
@@ -266,6 +441,7 @@ class InferenceEngine:
                 alloc.grow_to(slot, tokens)
                 self._note_pages()
                 self._emit_kv()
+                self._rebalance(protect={slot})
                 return True
             except PoolExhausted:
                 if self.prefix is not None and self.prefix.evict_cold(1):
@@ -325,6 +501,25 @@ class InferenceEngine:
         if len(ids) >= npages:
             self.prefix.insert([int(t) for t in eff], ids[:npages])
 
+    def prefix_peek(self, tokens) -> int:
+        """Router probe: tokens of ``tokens`` this engine's prefix cache
+        already holds, floored to the prefill-chunk grid exactly like
+        :meth:`_prefix_lookup` floors a real admission hit — and with no
+        side effects (no stats, no LRU touch), so probing the losing
+        replicas of a routing decision leaves them untouched."""
+        if self.prefix is None or tokens is None:
+            return 0
+        matched = self.prefix.peek([int(t) for t in tokens])
+        return self._floor_to_chunk(matched)
+
+    def _floor_to_chunk(self, matched: int) -> int:
+        """Floor a prefix-cache hit to the prefill-chunk grid: a resumed
+        prefill must re-dispatch on exactly the chunk boundaries a cold
+        prefill would use, or the stream is no longer bit-identical. The
+        ONE flooring rule shared by :meth:`prefix_peek` (router probes)
+        and :meth:`_prefix_lookup` (real admissions)."""
+        return (matched // self.prefill_chunk) * self.prefill_chunk
+
     def _prefix_lookup(self, eff: np.ndarray) -> tuple[int, list[int]]:
         """Longest cached prefix of ``eff``, floored to the prefill-chunk
         grid so the resumed prefill re-dispatches on exactly the chunk
@@ -333,7 +528,7 @@ class InferenceEngine:
         if self.prefix is None:
             return 0, []
         matched, pages = self.prefix.lookup([int(t) for t in eff])
-        hit = (matched // self.prefill_chunk) * self.prefill_chunk
+        hit = self._floor_to_chunk(matched)
         if hit <= 0:
             return 0, []
         return hit, pages[:self.allocator.pages_needed(hit)]
@@ -381,9 +576,10 @@ class InferenceEngine:
             self.lengths = new_lengths
             self.stats.prefill_tokens += c
             self.stats.prefill_dispatches += 1
-            # a timestamp per dispatched sub-chunk, so whole-prompt
-            # policies still expose intra-prompt boundaries to step-SLO
-            # accounting (Request.t_prefill)
+            # cost + timestamp accrue per dispatched sub-chunk, so
+            # whole-prompt policies still expose intra-prompt boundaries to
+            # step-SLO accounting (Request.t_prefill)
+            self._advance("prefill", c, req)
             req.t_prefill.append(self.now())
             self._emit_span("prefill", req, c, t0, self.now())
         self._partial[slot] = upto
@@ -479,6 +675,7 @@ class InferenceEngine:
         for slot, c in plan:
             req = self.active[slot]
             t0 = self.now()
+            self._advance("prefill", c, req)
             req.t_prefill.append(self.now())
             self._emit_span("prefill", req, c, t0, self.now())
             if (self._partial[slot] < len(self._eff[slot])
@@ -523,7 +720,8 @@ class InferenceEngine:
                 if fresh > self.allocator.free_pages + reclaim:
                     continue   # memory-aware: smaller requests may still fit
                 if in_use_eff > 0 and (in_use_eff + len(hit_pages) + fresh
-                                       > self.allocator.num_pages):
+                                       > self.allocator.high_watermark
+                                       * self.allocator.num_pages):
                     continue
                 if fresh > self.allocator.free_pages:
                     self.prefix.evict_cold(
@@ -550,12 +748,14 @@ class InferenceEngine:
             new_lengths[slot] = hit
             self.lengths = new_lengths
             if hit:
-                # fully-hit chunks skip prefill: their pages are mapped,
-                # not recomputed
+                # fully-hit chunks skip prefill: zero FLOPs, but the pages
+                # must be gathered through the block table once — charged
+                # as a memory-bound item, not compute
                 self.stats.prefix_hit_tokens += hit
                 self.stats.shared_pages += len(hit_pages)
                 t0 = self.now()
-                req.t_prefill.append(t0)
+                self._advance("prefix_gather", hit, req)
+                req.t_prefill.append(self.now())
                 if self._recorder is not None:
                     self._recorder.instant(
                         "prefix_hit", req.app, req.request_id, t0,
@@ -670,16 +870,27 @@ class InferenceEngine:
             # after it
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
             self.stats.decode_syncs += 1
+            if self._req_cost is not None:
+                # shared hardware serializes service demand: the step costs
+                # the sum of every active row's per-token decode cost; each
+                # row's telemetry span covers its own serialized slice
+                for i in decoding:
+                    s0 = self.now()
+                    self._advance("decode", 1, self.active[i])
+                    self._emit_span("decode", self.active[i], 1, s0,
+                                    self.now())
+            else:
+                self._advance("decode", len(decoding))
+                if self._recorder is not None:
+                    # one batched dispatch: split the step interval across
+                    # rows so busy time is conserved (N overlapping spans
+                    # each claiming the full engine would overstate SMACT)
+                    dt = (self.now() - t_step0) / len(decoding)
+                    for j, i in enumerate(decoding):
+                        self._emit_span("decode", self.active[i], 1,
+                                        t_step0 + j * dt,
+                                        t_step0 + (j + 1) * dt)
             t = self.now()
-            if self._recorder is not None:
-                # one batched dispatch: split the step interval across
-                # rows so busy time is conserved (N overlapping spans
-                # each claiming the full engine would overstate SMACT)
-                dt = (t - t_step0) / len(decoding)
-                for j, i in enumerate(decoding):
-                    self._emit_span("decode", self.active[i], 1,
-                                    t_step0 + j * dt,
-                                    t_step0 + (j + 1) * dt)
             if self._last_decode_t is not None:
                 self.stats.max_decode_gap_s = max(
                     self.stats.max_decode_gap_s, t - self._last_decode_t)
@@ -711,5 +922,9 @@ class InferenceEngine:
         for _ in range(max_steps):
             if not self.waiting and all(a is None for a in self.active):
                 break
+            if (self._use_vclock and
+                    not any(r.arrival_s <= self.now() for r in self.waiting)
+                    and all(a is None for a in self.active)):
+                self.advance_to(min(r.arrival_s for r in self.waiting))
             self.step()
         return self.done

@@ -5,7 +5,8 @@
 * no import statement in ``src/repro_torch``, ``chip_smoke.py``,
   ``chip_ab.py`` or ``chip_ssd_variants.py`` names ``jax`` or ``repro``;
 * an entry point's default device is CUDA: without a usable GPU it raises
-  rather than carrying on on the CPU;
+  rather than carrying on on the CPU — the Scenario path
+  (``Scenario.run(substrate="engine")``) included;
 * a kernel whose library cannot load raises: the CUDA route never falls
   back to the plain version.
 """
@@ -33,7 +34,11 @@ def _modules() -> list[str]:
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.serving.engine" in mods
+    assert {"repro_torch.serving.engine", "repro_torch.bench.engine_runner",
+            "repro_torch.bench.scenario", "repro_torch.core.simulator",
+            "repro_torch.kernels.autotune", "repro_torch.roofline.analysis",
+            "repro_torch.resilience", "repro_torch.serving.router",
+            "repro_torch.telemetry", "repro_torch.models.encdec"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -59,6 +64,8 @@ def test_no_jax_or_repro_imports_in_sources():
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
+    from repro_torch.bench import Scenario, ScenarioApp
+    from repro_torch.bench import engine_runner
     from repro_torch.configs.registry import get_config
     from repro_torch.device import resolve_device
     from repro_torch.launch import serve, train
@@ -74,6 +81,12 @@ def test_default_device_raises_without_cuda(monkeypatch):
         serve.main(["--reduced", "--requests", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--reduced", "--steps", "1"])
+    sc = Scenario(mode="concurrent", policy="chunked", total_chips=8,
+                  apps=[ScenarioApp("chatbot", num_requests=1)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sc.run(substrate="engine")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine_runner.run_scenario_on_engine(sc)
     assert build_model(cfg, "cpu").device.type == "cpu"
 
 

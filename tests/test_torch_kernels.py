@@ -460,6 +460,14 @@ CARD_CASES = [
     (32, 1, 64, "bfloat16", "bfloat16", 16, 1280),
     (16, 32, 16, "bfloat16", "bfloat16", 7, 64),
     (4, 8, 128, "float32", "bfloat16", 1, 1280),
+    # the Scenario vehicle (4 heads of 16 over 2 KV heads, chunk 8, bf16
+    # pool) at the pages the tuner picks for it
+    (64, 2, 16, "float32", "bfloat16", 8, 256),
+    (128, 2, 16, "float32", "bfloat16", 8, 512),
+    (256, 2, 16, "float32", "bfloat16", 8, 1024),
+    # full-width tinyllama-1.1b in the Scenario (G 8, d 64, chunk 8) at
+    # the page the tuner picks for it
+    (256, 8, 64, "float32", "bfloat16", 8, 1024),
 ]
 
 
