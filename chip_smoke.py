@@ -52,6 +52,22 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                 variant and copy width), R 1, 4095 and 4096, both dtypes,
                 rows aligned and 1 element off; each called twice, bitwise
                 equal; timed at 4096 x 2048 in float32 and bfloat16;
+              * the vlm, moe, hybrid and encdec families' geometry
+                (FAMILY_SHAPES): paged and contiguous decode / prefill at
+                chameleon-34b (64 heads over 8 KV heads of 128),
+                moonshot-v1-16b-a3b (16 over 16 of 128), jamba-v0.1-52b
+                (32 over 8 of 128) and seamless-m4t-large-v2 (16 over 16
+                of 64) at chunk and page 16 over 256 positions, and the
+                reduced configs' 4 over 4 of 16 at chunk 8, page 64; the
+                SSD at jamba's widths (128 heads of 64, state 128; Q 16,
+                13, 1, 256) and the reduced configs' (8 heads of 16, state
+                16); the flash forward at every geometry the families'
+                forward and prefill run it at (FAMILY_FLASH, f32): the
+                seamless encoder without the mask (4 x 1000 frames, 16
+                heads of 64; timed beside SDPA) and decoder (causal, S 64
+                and 63), and the reduced configs' (S 24, 16 and 10, 4 heads
+                of 16 over 2 or 4 KV heads, causal or not); each called
+                twice, bitwise equal;
               serving attention in q float32 with caches bfloat16 (the
               serving dtypes) and float32. Tolerance: 2e-5 absolute + 2e-5
               relative (both sides compute in float32 on identical inputs;
@@ -91,6 +107,33 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               layers on both): logits must agree within 1e-3 absolute with
               float32 caches and 2e-2 with the bfloat16 serving caches
               (card_vs_cpu says why).
+   families — the same CLI and trace at full width on the vlm, moe,
+              hybrid and encdec families, one at a time, each cut in depth
+              only as far as one card forces and the cut printed:
+              chameleon-34b (4 of 48 layers), moonshot-v1-16b-a3b (4 of
+              48), jamba-v0.1-52b (one period: 8 of 32 sublayers, 1
+              attention, 4 MoE of 16 experts; 53 GB of float32 weights) and
+              seamless-m4t-large-v2 (all 24 + 24 layers) on the paged pool,
+              all but chameleon under policy mixed; launches exactly as
+              EngineStats and the prefill plans dictate (jamba: the SSD
+              once an SSD sublayer a prefill dispatch; seamless: decode
+              attention once a decoder layer a decode step and a step of
+              its token-stepped prefill, a multi-slot dispatch stepping its
+              widest row), at a geometry phase 3 checked, and the MoE
+              paths' multi-slot plans falling back to per-slot
+              dispatches; a decode step and a prefill chunk of each
+              profiled, the MoE FFN's share printed. Then seamless whole
+              at full width: the encoder on 4 x 1000 frames (flash
+              without the mask, once a layer), the teacher-forced forward,
+              prefill and a decode step that must match the forward's
+              last position (2e-2 of the largest logit: the bf16 cache).
+              Then each new family's reduced config (chameleon, moonshot,
+              kimi, jamba, seamless) on the card and on the CPU from one
+              set of weights: forward logits within 1e-3 (vlm embeds and
+              enc-dec frames included; every flash forward at a FAMILY_FLASH
+              geometry), and 6 requests served under mixed with equal token
+              streams (seamless's through multi-slot dispatches with padded
+              rows).
    scenario — the paper's three-app concurrent workload (chatbot 2,
               imagegen 2, live_captions 5 requests; 256 chips of the
               simulated tpu-v5e) as a repro_torch.bench.Scenario through
@@ -133,8 +176,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -193,7 +238,57 @@ SERVING = PagedShape("serving", H, KV, D, C, PAGE, NB)
 SCENARIO_SHAPES = [PagedShape(f"vehicle, page {p}", 4, 2, 16, 8, p, 5)
                    for p in (64, 128, 256)] + [
     PagedShape("full width, page 256", H, KV, D, 8, 256, 4)]
-PAGED_SHAPES = [SERVING, *SCENARIO_SHAPES]
+#: the vlm, moe, hybrid and encdec families' serving geometry at full width
+#: (phase 4: chunk and page 16, max-seq 256; the contiguous kernels over
+#: the table's 256 positions), and the reduced configs' where no vehicle
+#: shape covers it (card vs CPU: 4 heads of 16 over 4 KV heads, chunk 8,
+#: page 64, max-seq 64)
+FAMILY_SHAPES = [PagedShape("chameleon-34b", 64, 8, 128, C, PAGE, NB),
+                 PagedShape("moonshot-v1-16b-a3b", 16, 16, 128, C, PAGE, NB),
+                 PagedShape("jamba-v0.1-52b", 32, 8, 128, C, PAGE, NB),
+                 PagedShape("seamless-m4t-large-v2", 16, 16, 64, C, PAGE,
+                            NB),
+                 PagedShape("reduced, KV 4", 4, 4, 16, 8, 64, 5)]
+PAGED_SHAPES = [SERVING, *SCENARIO_SHAPES, *FAMILY_SHAPES]
+#: the SSD widths (heads, head dim, state) phase 3 checks: mamba2-1.3b's,
+#: jamba-v0.1-52b's, and the reduced configs' (SSD_CASES)
+SSD_WIDTHS = [(SSD_H, SSD_P, SSD_N), (128, 64, 128), (8, 16, 16)]
+#: the seamless encoder's attention: B rows of ENC_T frames (20 s of audio
+#: at 50 frames a second), 16 heads of 64, no mask
+ENC_T, ENC_H, ENC_D = 1000, 16, 64
+#: the seamless whole-prompt path: B requests of ENC_T frames and
+#: SEAMLESS_S target tokens
+SEAMLESS_S = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashShape:
+    """A geometry of the flash forward in float32: rows, sequence (queries
+    and keys), the mask, query heads, KV heads and head dim."""
+    label: str
+    b: int
+    s: int
+    causal: bool
+    h: int
+    kv: int
+    d: int
+
+
+#: every geometry the families' forward and prefill run the flash forward
+#: at: the seamless encoder (no mask) and decoder (the forward over
+#: SEAMLESS_S tokens, the prefill over all but the last) at full width, and
+#: the reduced configs' forwards on the card (2 rows of 24 tokens, of 16
+#: embeddings for vlm, of 10 frames for the enc-dec encoder; 4 heads of 16
+#: over 2 or 4 KV heads); flash_geometry fails on any other
+FAMILY_FLASH = [
+    FlashShape("seamless encoder", B, ENC_T, False, ENC_H, ENC_H, ENC_D),
+    FlashShape("seamless decoder, forward", B, SEAMLESS_S, True, 16, 16, 64),
+    FlashShape("seamless decoder, prefill", B, SEAMLESS_S - 1, True, 16, 16,
+               64),
+    FlashShape("reduced, KV 2", 2, 24, True, 4, 2, 16),
+    FlashShape("reduced vlm embeds, KV 2", 2, 16, True, 4, 2, 16),
+    FlashShape("reduced, KV 4", 2, 24, True, 4, 4, 16),
+    FlashShape("reduced encoder", 2, 10, False, 4, 4, 16)]
 
 
 def fail(msg: str) -> None:
@@ -272,17 +367,17 @@ def make_pool(torch, gen, dev, need_pages, pool_dtype, page=PAGE, kv=KV,
     return k.to(pool_dtype), v.to(pool_dtype), bt
 
 
-def make_cache(torch, gen, dev, filled, cache_dtype):
-    """Model-layout caches (B, S + 1, KV, d) — the serving cache with its
+def make_cache(torch, gen, dev, filled, cache_dtype, kv=KV, d=D, s=S):
+    """Model-layout caches (B, s + 1, KV, d) — the serving cache with its
     drop position — holding garbage from position ``filled[i]`` of row i
-    on, drop position included; returns the head-major (B, KV, S, d) views
-    of the first S positions that the kernels read in place."""
-    k = torch.randn((B, S + 1, KV, D), generator=gen, device=dev)
-    v = torch.randn((B, S + 1, KV, D), generator=gen, device=dev)
+    on, drop position included; returns the head-major (B, KV, s, d) views
+    of the first s positions that the kernels read in place."""
+    k = torch.randn((B, s + 1, kv, d), generator=gen, device=dev)
+    v = torch.randn((B, s + 1, kv, d), generator=gen, device=dev)
     for i, n in enumerate(filled):
         k[i, n:], v[i, n:] = 50.0, -50.0
     k, v = k.to(cache_dtype), v.to(cache_dtype)
-    return k[:, :S].transpose(1, 2), v[:, :S].transpose(1, 2)
+    return k[:, :s].transpose(1, 2), v[:, :s].transpose(1, 2)
 
 
 def check_close(name, got, want, tol=ATOL):
@@ -369,7 +464,7 @@ def reckoning_check(torch, layout):
     for fn in (dec, pre):
         fn.argtypes = [build.ctypes.c_int] * 3
         fn.restype = build.ctypes.c_longlong
-    for d in (16, D, 80, 256):
+    for d in sorted({16, 80, 256} | {p.d for p in PAGED_SHAPES}):
         for kv_elt in (2, 4):
             for g in sorted({1, 32} | {p.h // p.kv for p in PAGED_SHAPES}):
                 if dec(g, d, int(kv_elt == 2)) != \
@@ -533,26 +628,155 @@ def scenario_kernel_cases(torch, K, ref, gen, dev):
     return {name: max(e) for name, e in errs.items()}
 
 
+def contiguous_decode_case(torch, K, ref, gen, dev, shape, lengths,
+                           cache_dtype):
+    """Kernel #3 at ``shape`` over a cache of ``shape.cap`` positions (its
+    drop position and every position past a row's length garbage), rows
+    of ``lengths`` (a row of length 0 must give 0), against its plain
+    version, and called twice (bitwise equal). Returns the max abs error
+    and the call's inputs (q, k, v, lengths)."""
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn((B, shape.h, shape.d), generator=gen, device=dev)
+    k, v = make_cache(torch, gen, dev, lengths, cache_dtype, shape.kv,
+                      shape.d, shape.cap)
+    call = functools.partial(K["decode_attention"], q, k, v, ln,
+                             rope_theta=ROPE_THETA)
+    got = call()
+    want = ref.decode_attention_ref(q, k, v, ln, rope_theta=ROPE_THETA)
+    torch.cuda.synchronize()
+    name = f"decode_attention[{shape.label}, cache={cache_dtype}]"
+    active = [i for i, n in enumerate(lengths) if n > 0]
+    err = check_close(name, got[active], want[active])
+    if not all(torch.all(got[i] == 0) for i, n in enumerate(lengths)
+               if n == 0):
+        fail(f"{name}: a length-0 row must give 0")
+    check_repeat(torch, name, call, got)
+    return err, (q, k, v, ln)
+
+
+def contiguous_prefill_case(torch, K, ref, gen, dev, shape, starts,
+                            cache_dtype):
+    """Kernel #4 at ``shape``: a chunk of ``shape.c`` tokens a row from
+    ``starts`` over a cache of ``shape.cap`` positions, against its plain
+    version, and called twice (bitwise equal). Returns the max abs error
+    and the call's inputs (q, k, v, starts)."""
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    qc = torch.randn((B, shape.c, shape.h, shape.d), generator=gen,
+                     device=dev).transpose(1, 2)
+    k, v = make_cache(torch, gen, dev, [s + shape.c for s in starts],
+                      cache_dtype, shape.kv, shape.d, shape.cap)
+    call = functools.partial(K["prefill_attention"], qc, k, v, st,
+                             rope_theta=ROPE_THETA)
+    got = call()
+    want = ref.prefill_attention_ref(qc, k, v, st, rope_theta=ROPE_THETA)
+    torch.cuda.synchronize()
+    name = f"prefill_attention[{shape.label}, cache={cache_dtype}]"
+    err = check_close(name, got, want)
+    check_repeat(torch, name, call, got)
+    return err, (qc, k, v, st)
+
+
+def ssd_case(torch, fn, ref, args, what):
+    """Kernel #5 on ``args`` against its plain version (y and the end
+    state), called twice (bitwise equal); returns the max abs error."""
+    y, st = fn(*args)
+    want_y, want_st = ref.ssd_chunk_ref(*args)
+    torch.cuda.synchronize()
+    err = max(check_close(f"ssd_chunk_scan y {what}", y, want_y),
+              check_close(f"ssd_chunk_scan state {what}", st, want_st))
+    check_repeat(torch, f"ssd_chunk_scan {what}",
+                 lambda: torch.cat([t.flatten() for t in fn(*args)]),
+                 torch.cat([y.flatten(), st.flatten()]))
+    return err
+
+
+def family_kernel_cases(torch, F, K, ref, gen, dev):
+    """The kernels at the vlm, moe, hybrid and encdec families' geometry:
+    #1-#4 at every FAMILY_SHAPES shape, bfloat16 caches (the serving
+    dtype) — decode rows shorter than a page, across a page and across the
+    whole table, and an idle row; prefill chunks from 0, across a page,
+    past two pages and ending at the table's last position; the contiguous
+    kernels over a cache of the table's positions — then #5 at jamba's
+    widths (SSD_Q chunks of SSD_M rows) and #6 without the mask at the
+    seamless encoder's shape (f32, timed beside SDPA). Each against its
+    plain version and called twice, bitwise equal. Returns the max abs
+    error of each kernel."""
+    errs: dict = {}
+
+    def note(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+        return err
+
+    for shape in FAMILY_SHAPES:
+        lengths = [5, shape.page + 3, shape.cap, 0]
+        starts = [0, shape.page - 3, 2 * shape.page + 5,
+                  shape.cap - shape.c]
+        bf = torch.bfloat16
+        e = [note("paged_decode_attention", paged_decode_case(
+                 torch, K, ref, gen, dev, shape, lengths, bf)[0]),
+             note("paged_prefill_attention", paged_prefill_case(
+                 torch, K, ref, gen, dev, shape, starts, bf)[0]),
+             note("decode_attention", contiguous_decode_case(
+                 torch, K, ref, gen, dev, shape, lengths, bf)[0]),
+             note("prefill_attention", contiguous_prefill_case(
+                 torch, K, ref, gen, dev, shape, starts, bf)[0])]
+        log(f"serving kernels at {shape.label} (H {shape.h}, KV {shape.kv}, "
+            f"d {shape.d}, chunk {shape.c}, page {shape.page} x {shape.nb} "
+            f"entries, bf16 caches): max abs err paged decode {e[0]:.3e}, "
+            f"paged prefill {e[1]:.3e}, contiguous decode {e[2]:.3e}, "
+            f"contiguous prefill {e[3]:.3e} (tol {ATOL} + {RTOL}*|plain|), "
+            "repeats bitwise equal")
+    fn = K["ssd_chunk_scan"]
+    h, p, n = SSD_WIDTHS[2]
+    for q in (8, 5, 24, 1):          # the reduced configs' chunks
+        note("ssd_chunk_scan", ssd_case(
+            torch, fn, ref, ssd_inputs(torch, gen, dev, q, SSD_M, h, p, n),
+            f"[reduced M={SSD_M} Q={q} H={h} P={p} N={n}]"))
+    h, p, n = SSD_WIDTHS[1]
+    for q in SSD_Q:
+        args = ssd_inputs(torch, gen, dev, q, SSD_M, h, p, n)
+        err = note("ssd_chunk_scan", ssd_case(
+            torch, fn, ref, args, f"[jamba M={SSD_M} Q={q} H={h} P={p} "
+            f"N={n}]"))
+        if q in (16, 256):
+            log(f"ssd_chunk_scan at jamba's widths M={SSD_M} Q={q} H={h} "
+                f"P={p} N={n}: max abs err {err:.3e} | kernel "
+                f"{timed_ms(torch, lambda: fn(*args)):.5f} ms | plain "
+                f"{timed_ms(torch, lambda: ref.ssd_chunk_ref(*args)):.4f} ms"
+                f" | bound {ssd_bound(SSD_M, q, h, p, n)[0]:.6f} ms")
+    fwd = K["flash_attention"]
+    for fs in FAMILY_FLASH:
+        err, (q, k, v) = flash_case(torch, K, ref, gen, dev, fs)
+        note("flash_attention", err)
+        line = (f"flash_attention at {fs.label} (B {fs.b}, S {fs.s}, H "
+                f"{fs.h}, KV {fs.kv}, d {fs.d}, causal={fs.causal}, f32): "
+                f"max abs err {err:.3e} (tol {ATOL} + {RTOL}*|plain|), "
+                "repeats bitwise equal")
+        if fs.label == "seamless encoder":
+            # q, k, v read and o written once (f32); q·k and p·v, 2·d flops
+            # each, and one exp, per pair and head
+            pairs = fs.b * fs.h * fs.s * fs.s
+            bound = flash_bound_entry(4 * 4 * fs.b * fs.h * fs.s * fs.d,
+                                      4 * fs.d * pairs, pairs, False)
+            ms = timed_ms(torch, lambda: fwd(q, k, v, causal=False), 10)
+            plain_ms = timed_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v, causal=False), 5)
+            lib_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v), 10)
+            line += (f" | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+                     f"sdpa {lib_ms:.4f} ms | bound {bound[0]:.4f} ms "
+                     f"({bound[1]})")
+        log(line)
+    return errs
+
+
 def contiguous_kernel_phase(torch, F, K, ref, gen, dev, out):
     reckoning_check(torch, "contiguous")
     # ---------------------------------------------------------- decode
-    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
-    q = torch.randn((B, H, D), generator=gen, device=dev)
-    active = [i for i, n in enumerate(DECODE_LENGTHS) if n > 0]
     fn = K["decode_attention"]
     for cache_dtype in (torch.bfloat16, torch.float32):
-        k, v = make_cache(torch, gen, dev, DECODE_LENGTHS, cache_dtype)
-        got = fn(q, k, v, lengths, rope_theta=ROPE_THETA)
-        want = ref.decode_attention_ref(q, k, v, lengths,
-                                        rope_theta=ROPE_THETA)
-        torch.cuda.synchronize()
-        err = check_close(f"decode_attention[{cache_dtype}]", got[active],
-                          want[active])
-        if not torch.all(got[3] == 0):
-            fail("decode_attention: a length-0 row must give 0")
-        check_repeat(torch, f"decode_attention[{cache_dtype}]",
-                     lambda: fn(q, k, v, lengths, rope_theta=ROPE_THETA),
-                     got)
+        err, (q, k, v, lengths) = contiguous_decode_case(
+            torch, K, ref, gen, dev, SERVING, DECODE_LENGTHS, cache_dtype)
         log(f"decode_attention q=float32 cache={cache_dtype}: max abs err "
             f"{err:.3e} (tol {ATOL} + {RTOL}*|plain|)")
         if cache_dtype == torch.bfloat16:
@@ -571,20 +795,10 @@ def contiguous_kernel_phase(torch, F, K, ref, gen, dev, out):
         torch, F, fn, ref, gen, dev)
 
     # --------------------------------------------------------- prefill
-    start = torch.tensor(PREFILL_STARTS, dtype=torch.int32, device=dev)
-    qc = torch.randn((B, C, H, D), generator=gen, device=dev).transpose(1, 2)
     fn = K["prefill_attention"]
     for cache_dtype in (torch.bfloat16, torch.float32):
-        k, v = make_cache(torch, gen, dev, [s + C for s in PREFILL_STARTS],
-                          cache_dtype)
-        got = fn(qc, k, v, start, rope_theta=ROPE_THETA)
-        want = ref.prefill_attention_ref(qc, k, v, start,
-                                         rope_theta=ROPE_THETA)
-        torch.cuda.synchronize()
-        err = check_close(f"prefill_attention[{cache_dtype}]", got, want)
-        check_repeat(torch, f"prefill_attention[{cache_dtype}]",
-                     lambda: fn(qc, k, v, start, rope_theta=ROPE_THETA),
-                     got)
+        err, (qc, k, v, start) = contiguous_prefill_case(
+            torch, K, ref, gen, dev, SERVING, PREFILL_STARTS, cache_dtype)
         log(f"prefill_attention q=float32 cache={cache_dtype}: max abs err "
             f"{err:.3e} (tol {ATOL} + {RTOL}*|plain|)")
         if cache_dtype == torch.bfloat16:
@@ -722,31 +936,13 @@ def ssd_rows(torch, fn, ref, gen, dev):
 def ssd_kernel_phase(torch, K, ref, gen, dev, out):
     ssd_reckoning_check()
     fn = K["ssd_chunk_scan"]
-    errs = []
-    for q in SSD_Q:
-        args = ssd_inputs(torch, gen, dev, q)
-        y, st = fn(*args)
-        want_y, want_st = ref.ssd_chunk_ref(*args)
-        torch.cuda.synchronize()
-        errs.append(max(
-            check_close(f"ssd_chunk_scan y [Q={q}]", y, want_y),
-            check_close(f"ssd_chunk_scan state [Q={q}]", st, want_st)))
-        check_repeat(torch, f"ssd_chunk_scan [Q={q}]",
-                     lambda: torch.cat([t.flatten() for t in fn(*args)]),
-                     torch.cat([y.flatten(), st.flatten()]))
+    errs = [ssd_case(torch, fn, ref, ssd_inputs(torch, gen, dev, q),
+                     f"[Q={q}]") for q in SSD_Q]
     for m, q, h, p, n, steep, offset in SSD_CASES:
         args = ssd_inputs(torch, gen, dev, q, m, h, p, n, steep, offset)
-        y, st = fn(*args)
-        want_y, want_st = ref.ssd_chunk_ref(*args)
-        torch.cuda.synchronize()
         what = (f"[M={m} Q={q} H={h} P={p} N={n}{' steep' if steep else ''}"
                 f"{f' offset {offset}' if offset else ''}]")
-        errs.append(max(check_close(f"ssd_chunk_scan y {what}", y, want_y),
-                        check_close(f"ssd_chunk_scan state {what}", st,
-                                    want_st)))
-        check_repeat(torch, f"ssd_chunk_scan {what}",
-                     lambda: torch.cat([t.flatten() for t in fn(*args)]),
-                     torch.cat([y.flatten(), st.flatten()]))
+        errs.append(ssd_case(torch, fn, ref, args, what))
     log(f"ssd_chunk_scan: {len(SSD_Q) + len(SSD_CASES)} cases within "
         f"{max(errs):.3e} (tol {ATOL} + {RTOL}*|plain|), each called twice, "
         "bitwise equal")
@@ -771,6 +967,9 @@ def kernel_phase(torch, F, K, ref):
     ssd_kernel_phase(torch, K, ref, gen, dev, out)
     flash_kernel_phase(torch, F, K, ref, gen, dev, out)
     rmsnorm_kernel_phase(torch, F, K, ref, gen, dev, out)
+    for name, err in family_kernel_cases(torch, F, K, ref, gen,
+                                         dev).items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     for name, r in out.items():
         lib = ("—" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -855,13 +1054,54 @@ def tol_share(torch, got, want, tol=ATOL):
     return (err / (tol + tol * want.double().abs())).max().item()
 
 
-def flash_inputs(torch, gen, dev, sq, skv, dtype):
-    """q, k, v in the model's layout (B, S, heads, d), seen head-major as
+def flash_inputs(torch, gen, dev, sq, skv, dtype, b=B, h=H, kv=KV, d=D):
+    """q, k, v in the model's layout (b, S, heads, d), seen head-major as
     ops.attention_prefill passes them."""
     def one(n, heads):
-        return (torch.randn((B, n, heads, D), generator=gen, device=dev)
+        return (torch.randn((b, n, heads, d), generator=gen, device=dev)
                 .to(dtype).transpose(1, 2))
-    return one(sq, H), one(skv, KV), one(skv, KV)
+    return one(sq, h), one(skv, kv), one(skv, kv)
+
+
+def flash_case(torch, K, ref, gen, dev, fs):
+    """Kernel #6 at ``fs`` against its plain version, and called twice
+    (bitwise equal). Returns the max abs error and the inputs (q, k, v)."""
+    q, k, v = flash_inputs(torch, gen, dev, fs.s, fs.s, torch.float32,
+                           b=fs.b, h=fs.h, kv=fs.kv, d=fs.d)
+    call = functools.partial(K["flash_attention"], q, k, v,
+                             causal=fs.causal)
+    got = call()
+    want = ref.flash_attention_ref(q, k, v, causal=fs.causal)
+    torch.cuda.synchronize()
+    what = (f"flash_attention[{fs.label}: B={fs.b} S={fs.s} H={fs.h} "
+            f"KV={fs.kv} d={fs.d} causal={fs.causal}]")
+    err = check_close(what, got, want)
+    check_repeat(torch, what, call, got)
+    return err, (q, k, v)
+
+
+@contextlib.contextmanager
+def flash_geometry(torch, what):
+    """Records the geometry of every flash forward that ops launches
+    inside, and fails on one that is not a FAMILY_FLASH shape (each held
+    against its plain version in phase 3)."""
+    from repro_torch.kernels import ops
+    orig, seen = ops.flash_attention, set()
+
+    def recorded(q, k, v, *, causal=True, **kwargs):
+        seen.add((q.shape[0], q.shape[2], k.shape[2], causal, q.shape[1],
+                  k.shape[1], q.shape[3], q.dtype, k.dtype))
+        return orig(q, k, v, causal=causal, **kwargs)
+    ops.flash_attention = recorded
+    try:
+        yield
+    finally:
+        ops.flash_attention = orig
+    checked = {(f.b, f.s, f.s, f.causal, f.h, f.kv, f.d, torch.float32,
+                torch.float32) for f in FAMILY_FLASH}
+    for key in sorted(seen - checked, key=str):
+        fail(f"{what}: the flash forward ran at (B, Sq, Skv, causal, H, KV, "
+             f"d, dtypes) {key}, a geometry phase 3 did not check")
 
 
 def sdpa_full(torch, F, q, k, v, causal):
@@ -1048,42 +1288,137 @@ SERVE_ARGV = ["--arch", "tinyllama-1.1b", "--requests", "8", "--slots", "4",
 MAMBA_ARGV = ["--arch", "mamba2-1.3b"] + SERVE_ARGV[2:]
 
 #: each serving path: its CLI and ``paged`` argument, the cache it must
-#: serve on, the width it must run at, and which kernel runs once per
-#: layer in which of its dispatches
+#: serve on and the width and depth it must run at (``cut``: the layers
+#: kept, passed to serve.main; None keeps them all)
 PATHS = {
     "paged tinyllama-1.1b": dict(
-        argv=SERVE_ARGV, paged=None, cache="paged", layers=22, d_model=2048,
-        kernels={"paged_decode_attention": "decode_syncs",
-                 "paged_prefill_attention": "prefill_dispatches"}),
+        argv=SERVE_ARGV, paged=None, cache="paged", layers=22, d_model=2048),
     "contiguous tinyllama-1.1b": dict(
         argv=SERVE_ARGV, paged=False, cache="contiguous", layers=22,
-        d_model=2048,
-        kernels={"decode_attention": "decode_syncs",
-                 "prefill_attention": "prefill_dispatches"}),
+        d_model=2048),
     "mamba2-1.3b": dict(
         argv=MAMBA_ARGV, paged=None, cache="contiguous", layers=48,
-        d_model=2048,
-        kernels={"ssd_chunk_scan": "prefill_dispatches"}),
+        d_model=2048),
 }
+
+
+def family_argv(arch: str, policy: str) -> list:
+    argv = ["--arch", arch] + SERVE_ARGV[2:]
+    argv[argv.index("--policy") + 1] = policy
+    return argv
+
+
+#: the vlm, moe, hybrid and encdec families at full width, each cut in
+#: depth only as far as one card forces (f32 weights: chameleon 15.4 GB at
+#: 4 of 48 layers, moonshot 12.1 GB at 4 of 48, jamba 53.1 GB at one period
+#: of 8 of 32 sublayers, seamless 8.1 GB whole); all but chameleon under
+#: ``mixed``, whose multi-slot prefill falls back to per-slot dispatches
+#: where MoE routing couples rows (``per_slot``) and pads its shorter rows
+#: in enc-dec's token-stepped dispatches (``padded``); ``profile``: the calls
+#: paged_profile takes of each dispatch (a seamless prefill chunk is 16
+#: decode steps, 32,000 kernels: the profiler's own processing of 10 of
+#: them would take minutes)
+FAMILY_PATHS = {
+    "paged chameleon-34b": dict(
+        argv=family_argv("chameleon-34b", "chunked"), paged=None,
+        cache="paged", cut=4, layers=4, d_model=8192, profile=10),
+    "paged moonshot-v1-16b-a3b": dict(
+        argv=family_argv("moonshot-v1-16b-a3b", "mixed"), paged=None,
+        cache="paged", cut=4, layers=4, d_model=2048, per_slot=True,
+        profile=10),
+    "paged jamba-v0.1-52b": dict(
+        argv=family_argv("jamba-v0.1-52b", "mixed"), paged=None,
+        cache="paged", cut=8, layers=8, d_model=4096, per_slot=True,
+        profile=10),
+    "paged seamless-m4t-large-v2": dict(
+        argv=family_argv("seamless-m4t-large-v2", "mixed"), paged=None,
+        cache="paged", cut=None, layers=24, d_model=1024, padded=True,
+        profile=3),
+}
+
+
+def serving_launches(engine, plans) -> dict:
+    """Each kernel's launches that a run of ``engine`` must have made,
+    from its EngineStats and its PrefillPlans ``plans``: one a layer per
+    dispatch — decode attention a decode step (a decode sync), prefill
+    attention and the SSD a prefill dispatch — with hybrid's one attention
+    and ``attn_every - 1`` SSD sublayers a period, and enc-dec's
+    token-stepped prefill (one decode step per token of a dispatch's widest
+    row, so one decode attention a decoder layer and step)."""
+    cfg, st = engine.cfg, engine.stats
+    dec, pre = (("paged_decode_attention", "paged_prefill_attention")
+                if engine.paged else ("decode_attention",
+                                      "prefill_attention"))
+    if cfg.family == "ssm":
+        return {"ssd_chunk_scan": cfg.num_layers * st.prefill_dispatches}
+    if cfg.family == "encdec":
+        return {dec: cfg.num_decoder_layers
+                * (st.decode_syncs + st.prefill_tokens - plans.steps_saved)}
+    attn = (cfg.num_layers // cfg.attn_every if cfg.family == "hybrid"
+            else cfg.num_layers)
+    want = {dec: attn * st.decode_syncs, pre: attn * st.prefill_dispatches}
+    if cfg.family == "hybrid":
+        want["ssd_chunk_scan"] = (cfg.num_layers - attn) \
+            * st.prefill_dispatches
+    return want
+
+
+class PrefillPlans:
+    """What an engine's budgeted prefill made of each plan of more than one
+    slot (its ``_prefill_budget_plan``): ``per_slot``, the slots of plans
+    that fell back to per-slot dispatches (``multi_slot_batchable`` False:
+    MoE routing); ``multi``, the multi-slot dispatches, ``padded`` those
+    of them with a row shorter than the widest (the ``valid`` mask), and
+    ``steps_saved``, their tokens beyond their widths (the sum of a plan's
+    pieces less its widest): enc-dec's token-stepped prefill steps each
+    dispatch's widest row, so it steps prefill_tokens - steps_saved times."""
+
+    def __init__(self, engine_cls):
+        self.engine_cls = engine_cls
+        self.per_slot = self.multi = self.padded = self.steps_saved = 0
+
+    def __enter__(self):
+        orig = self.orig = self.engine_cls._prefill_budget_plan
+
+        def recorded(engine, *args):
+            plan = orig(engine, *args)
+            widths = [c for _, c in plan]
+            if len(plan) > 1 and engine.model.multi_slot_batchable():
+                self.multi += 1
+                self.padded += len(set(widths)) > 1
+                self.steps_saved += sum(widths) - max(widths)
+            elif len(plan) > 1:
+                self.per_slot += len(plan)
+            return plan
+        self.engine_cls._prefill_budget_plan = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.engine_cls._prefill_budget_plan = self.orig
 
 
 def serve_phase(torch, serve, K, path):
     """A warm-up run (cuBLAS heuristics, lazy module loading: paid once per
     process and shape, not per request), then the measured run with every
-    kernel's launch count set to 0 just before it and read just after."""
-    spec = PATHS[path]
+    kernel's launch count set to 0 just before it and read just after:
+    exactly serving_launches' counts, at a geometry phase 3 checked."""
+    spec = PATHS.get(path) or FAMILY_PATHS[path]
+    run = functools.partial(serve.main, spec["argv"], paged=spec["paged"],
+                            layers=spec.get("cut"))
     t0 = time.monotonic()
-    serve.main(spec["argv"], paged=spec["paged"])
+    run()
     torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"{path}: warm-up serve run (same trace) took "
         f"{time.monotonic() - t0:.2f}s")
     zero_counts(K)
-    engine = serve.main(spec["argv"], paged=spec["paged"])
+    with PrefillPlans(serve.InferenceEngine) as plans:
+        engine = run()
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in K.items()}
     st = engine.stats
-    layers = engine.cfg.num_layers
-    if engine.cfg.d_model != spec["d_model"] or layers != spec["layers"]:
+    if engine.cfg.d_model != spec["d_model"] or \
+            engine.cfg.num_layers != spec["layers"]:
         fail(f"{path}: served {engine.cfg.name} is not at full width")
     if engine.paged != (spec["cache"] == "paged"):
         fail(f"{path}: the engine did not serve on the {spec['cache']} "
@@ -1092,24 +1427,29 @@ def serve_phase(torch, serve, K, path):
                                     for r in engine.done):
         fail(f"{path}: {len(engine.done)}/8 requests finished with 16 "
              "tokens")
-    for name, n in launches.items():
-        stat = spec["kernels"].get(name)
-        want = 0 if stat is None else layers * getattr(st, stat)
-        if stat is not None and n <= 0:
-            fail(f"{path}: {name} was launched {n} times on the serving "
-                 "path")
-        if n != want:
-            fail(f"{path}: {name} launches {n} != {want}"
-                 + (f" = {layers} x {getattr(st, stat)} {stat}"
-                    if stat else ""))
+    counts = check_launches(K, path, serving_launches(engine, plans))
+    check_geometry(path, [engine])
+    if spec.get("per_slot") and (plans.per_slot <= 0
+                                 or not st.mixed_steps):
+        fail(f"{path}: no multi-slot plan fell back to per-slot dispatches")
+    if spec.get("padded") and plans.padded <= 0:
+        fail(f"{path}: no multi-slot dispatch padded a shorter row")
     ttft = sorted(r.ttft for r in engine.done)
     tpot = sorted(r.tpot for r in engine.done)
-    log(f"{path}: served 8/8 on {engine.cfg.name}: TTFT median "
+    leaves: list = []
+    _tree(engine.params, leaves.append)
+    gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    cut = (f" (depth cut to {spec['cut']} layers, widths published)"
+           if spec.get("cut") else "") + \
+        f" with {gb:.1f} GB of {leaves[0].dtype} weights"
+    log(f"{path}: served 8/8 on {engine.cfg.name}{cut}: TTFT median "
         f"{ttft[len(ttft) // 2]:.4f}s max {ttft[-1]:.4f}s | TPOT median "
         f"{tpot[len(tpot) // 2]:.5f}s max {tpot[-1]:.5f}s | launches "
-        f"{ {k: launches[k] for k in spec['kernels']} }")
+        f"{counts} | prefill dispatches {st.prefill_dispatches}: "
+        f"{plans.multi} multi-slot ({plans.padded} with padded rows), "
+        f"{plans.per_slot} per-slot in place of multi-slot")
     log(f"{path}: EngineStats {json.dumps(dataclasses.asdict(st))}")
-    return engine, {k: launches[k] for k in spec["kernels"]}
+    return engine, counts
 
 
 def device_rows(torch, prof, n):
@@ -1118,8 +1458,10 @@ def device_rows(torch, prof, n):
     rows = []
     for e in prof.key_averages():
         # device-side events only: the CPU ops that launched them carry
-        # the same time again
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # the same time again; a profiler range's device-side event spans
+        # its kernels and the gaps between them
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.key == MOE_RANGE:
             continue
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
@@ -1152,12 +1494,45 @@ def profile_dispatches(torch, what, calls, n=10):
         dev_ms = sum(r[0] for r in rows)
         log(f"profile {what} {name} (full width, B={B}): host wall "
             f"{wall_ms:.3f} ms/dispatch, device busy {dev_ms:.3f} ms "
-            f"({100 * dev_ms / wall_ms:.1f}% of wall), "
+            f"({100 * dev_ms / wall_ms:.1f}% of wall, idle "
+            f"{100 * max(0.0, 1 - dev_ms / wall_ms):.1f}%), "
             f"{sum(r[1] for r in rows)} kernels")
         # the eight largest, then the repository's own kernels below them
         for i, (t, cnt, key) in enumerate(rows):
             if i < 8 or "(anonymous namespace)" in key:
                 log(f"  {t:.4f} ms  x{cnt}  {key[:90]}")
+        for e in prof.key_averages():
+            # moe_annotated's range on the host: the device time of the
+            # kernels launched inside it
+            if e.key == MOE_RANGE and \
+                    e.device_type == torch.autograd.DeviceType.CPU:
+                moe_ms = getattr(e, "device_time_total", getattr(
+                    e, "cuda_time_total", 0.0)) / n / 1e3
+                log(f"  MoE FFN: {e.count // n} calls a dispatch, device "
+                    f"{moe_ms:.3f} ms ({100 * moe_ms / dev_ms:.1f}% of "
+                    f"busy); host {e.cpu_time_total / n / 1e3:.3f} ms "
+                    "under the profiler")
+
+
+#: the profiler range moe_annotated puts around every MoE FFN
+MOE_RANGE = "moe_ffn"
+
+
+@contextlib.contextmanager
+def moe_annotated(torch):
+    """Every ``moe.moe_dispatch`` call inside a profiler range, so that
+    profile_dispatches can report the MoE FFN's share of a dispatch."""
+    from repro_torch.models import moe
+    orig = moe.moe_dispatch
+
+    def annotated(*args, **kwargs):
+        with torch.profiler.record_function(MOE_RANGE):
+            return orig(*args, **kwargs)
+    moe.moe_dispatch = annotated
+    try:
+        yield
+    finally:
+        moe.moe_dispatch = orig
 
 
 def dispatch_inputs(torch, vocab, dev):
@@ -1201,6 +1576,206 @@ def profile_phase(torch, paged_engine, mamba_engine):
 
 
 CARD_VS_CPU_ATOL = {"float32": 1e-3, "bfloat16": 2e-2}
+
+
+def paged_profile(torch, what, engine, n=10):
+    """profile_dispatches on ``engine``'s model at full width, ``n`` calls
+    each: a decode step and a 16-token prefill chunk of 4 rows (40-63
+    cached tokens) on the paged cache, the MoE FFN in its own range."""
+    dev = torch.device("cuda")
+    model, params = engine.model, engine.params
+    cache = model.init_paged_cache(1 + 4 * NB, PAGE, B, S)
+    bt = torch.arange(1, 1 + B * NB, dtype=torch.int32,
+                      device=dev).reshape(B, NB)
+    ln, act, tok1, tokc = dispatch_inputs(torch, engine.cfg.vocab_size, dev)
+    with moe_annotated(torch):
+        profile_dispatches(torch, what, {
+            "decode step": lambda: model.decode_step_paged(
+                params, cache, tok1, ln, bt, act),
+            "prefill chunk": lambda: model.prefill_chunk_paged(
+                params, cache, tokc, ln, bt, act, None),
+        }, n)
+
+
+def family_serve_phase(torch, serve, K) -> dict:
+    """The vlm, moe, hybrid and encdec paths of FAMILY_PATHS, one at a time
+    (jamba's weights take 53 GB): served and counted by serve_phase, then
+    a decode step and a prefill chunk profiled. Returns the launches."""
+    launches: dict = {}
+    for path in FAMILY_PATHS:
+        engine, counts = serve_phase(torch, serve, K, path)
+        add_counts(launches, counts)
+        paged_profile(torch, path, engine, FAMILY_PATHS[path]["profile"])
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+#: decode after prefill against the full forward's last position, relative
+#: to the largest logit (tests/test_models_smoke.py's bound: the prefill's
+#: bfloat16 cache rounds every cached value once)
+DECODE_REL_TOL = 2e-2
+
+
+def seamless_prefill_phase(torch, K) -> dict:
+    """seamless-m4t-large-v2, whole, at full width (random float32 weights
+    from seed 0): the encoder alone on B x ENC_T frames (the flash kernel
+    without the mask, once an encoder layer), the teacher-forced forward
+    over B x SEAMLESS_S tokens (encoder, then the decoder's causal flash,
+    once a layer each), prefill of all but the last token and one decode
+    step on its contiguous cache (decode attention once a decoder layer),
+    whose logits must match the forward's last position; every flash
+    forward at a FAMILY_FLASH geometry."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.factory import build_model
+    dev = torch.device("cuda")
+    cfg = get_config("seamless-m4t-large-v2")
+    model = build_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    frames = torch.randn((B, ENC_T, cfg.d_model), generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, SEAMLESS_S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    ne, nd = cfg.num_encoder_layers, cfg.num_decoder_layers
+    launches: dict = {}
+    with flash_geometry(torch, "seamless at full width"):
+        zero_counts(K)
+        t0 = time.monotonic()
+        enc = encdec.encode(params, frames, cfg, remat="none")
+        torch.cuda.synchronize()
+        enc_s = time.monotonic() - t0
+        add_counts(launches, check_launches(
+            K, "seamless encode (causal=False)", {"flash_attention": ne}))
+        if not torch.isfinite(enc).all():
+            fail("seamless encode: non-finite encoder output")
+        zero_counts(K)
+        t0 = time.monotonic()
+        full, _ = model.forward(params, {"frames": frames, "tokens": tokens},
+                                remat="none")
+        torch.cuda.synchronize()
+        fwd_s = time.monotonic() - t0
+        add_counts(launches, check_launches(
+            K, "seamless forward", {"flash_attention": ne + nd}))
+        zero_counts(K)
+        _, cache = model.prefill(params, {"frames": frames,
+                                          "tokens": tokens[:, :-1]},
+                                 SEAMLESS_S)
+        lengths = torch.full((B,), SEAMLESS_S - 1, dtype=torch.int32,
+                             device=dev)
+        dec, _ = model.decode_step(params, cache, tokens[:, -1:], lengths)
+        torch.cuda.synchronize()
+        add_counts(launches, check_launches(
+            K, "seamless prefill + decode step",
+            {"flash_attention": ne + nd, "decode_attention": nd}))
+    want = full[:, -1]
+    rel = ((dec - want).abs().max() / want.abs().max()).item()
+    if not torch.isfinite(dec).all() or rel > DECODE_REL_TOL:
+        fail(f"seamless: decode after prefill differs from the forward's "
+             f"last position by {rel:.3e} of the largest logit (tol "
+             f"{DECODE_REL_TOL})")
+    log(f"seamless-m4t-large-v2 at full width ({ne} + {nd} layers, d_model "
+        f"{cfg.d_model}): encode {B} x {ENC_T} frames {enc_s:.3f}s, "
+        f"forward with {SEAMLESS_S} tokens {fwd_s:.3f}s (host clock after "
+        f"synchronize); decode after prefill vs forward: {rel:.3e} of the "
+        f"largest logit (tol {DECODE_REL_TOL})")
+    del model, params, cache, enc, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: the reduced configs served on the card and on the CPU: one of each of
+#: the vlm, moe, hybrid and encdec families, and kimi beside moonshot (its
+#: 2 KV heads)
+FAMILY_ARCHS = ("chameleon-34b", "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b",
+                "jamba-v0.1-52b", "seamless-m4t-large-v2")
+
+
+def reduced_batches(torch, cfg):
+    """forward's inputs at the reduced config: 2 x 24 tokens (with 2 x 10
+    frames for enc-dec), and for vlm also 2 x 16 embeddings in place of
+    tokens."""
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                     generator=gen, dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, 10, cfg.d_model), generator=gen)
+    batches = [batch]
+    if cfg.family == "vlm":
+        batches.append({"tokens": None, "embeds": torch.randn(
+            (2, 16, cfg.d_model), generator=gen)})
+    return batches
+
+
+def family_card_vs_cpu_phase(torch, K) -> dict:
+    """Each FAMILY_ARCHS config at ``.reduced()`` widths, one set of
+    weights (drawn on the CPU and moved): forward logits on the card
+    against the CPU path within phase 4's float32 tolerance (the vlm
+    ``embeds`` and enc-dec frames included; every flash forward at a
+    FAMILY_FLASH geometry), then 6 chat requests served by InferenceEngine
+    under ``mixed`` (page 64, chunk 8, 4 slots) on both devices: the token
+    streams must be equal, the card run's launches exactly
+    serving_launches', and enc-dec's prefill must have run multi-slot
+    dispatches with padded rows. Returns the launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.factory import build_model
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.request import chat_trace
+    tol = CARD_VS_CPU_ATOL["float32"]
+    launches: dict = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch).reduced()
+        cpu, card = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+        cpu_params = cpu.init(torch.Generator().manual_seed(0))
+        card_params = _tree(cpu_params, lambda t: t.cuda())
+        errs = []
+        for batch in reduced_batches(torch, cfg):
+            want, _ = cpu.forward(cpu_params, batch, remat="none")
+            with flash_geometry(torch, f"{arch} reduced forward"):
+                got, _ = card.forward(card_params, {
+                    k: None if v is None else v.cuda()
+                    for k, v in batch.items()}, remat="none")
+            errs.append((got.cpu() - want).abs().max().item())
+            if not torch.isfinite(got).all() or errs[-1] > tol:
+                fail(f"{arch} reduced: card vs CPU forward logits differ by "
+                     f"{errs[-1]:.3e} > {tol} ({sorted(batch)})")
+        streams = []
+        for model, params in ((card, card_params), (cpu, cpu_params)):
+            engine = InferenceEngine(model, max_slots=4, max_seq=64,
+                                     policy="mixed", prefill_chunk=8,
+                                     page_size=64)
+            engine.load_params(params)
+            for req in chat_trace(6, cfg.vocab_size, mean_prompt=14,
+                                  max_new=8, seed=11):
+                engine.submit(req)
+            zero_counts(K)
+            with PrefillPlans(InferenceEngine) as plans:
+                done = engine.run()
+            if model is card:
+                torch.cuda.synchronize()
+                add_counts(launches, check_launches(
+                    K, f"{arch} reduced, served on the card",
+                    serving_launches(engine, plans)))
+                check_geometry(f"{arch} reduced", [engine])
+                if cfg.family == "encdec" and plans.padded <= 0:
+                    fail(f"{arch} reduced: no multi-slot prefill dispatch "
+                         "padded a shorter row")
+            streams.append(sorted((r.request_id, list(r.tokens_out))
+                                  for r in done))
+        if len(streams[0]) != 6 or streams[0] != streams[1]:
+            fail(f"{arch} reduced: the card's token streams differ from "
+                 "the CPU's")
+        log(f"card vs CPU, {arch} reduced: forward logits within "
+            f"{max(errs):.3e} (tol {tol}; {len(errs)} batches), token "
+            f"streams equal ({sum(len(t) for _, t in streams[0])} tokens, "
+            f"6 requests, mixed; prefill dispatches "
+            f"{engine.stats.prefill_dispatches}: {plans.multi} multi-slot "
+            f"({plans.padded} padded), {plans.per_slot} per-slot in place "
+            "of multi-slot)")
+    return launches
+
 
 
 def card_vs_cpu(torch, what, run, card_params):
@@ -1733,20 +2308,36 @@ def token_streams(engines) -> list:
 
 
 def check_geometry(what, engines) -> None:
-    """Every partition's engine ran the paged kernels at a geometry that
-    phase 3 held against their plain versions (SCENARIO_SHAPES): the same
-    heads, head dim, chunk and page, and no more table entries."""
+    """Every engine ran its kernels at a geometry that phase 3 held
+    against their plain versions: the attention kernels at the same heads,
+    head dim, chunk and (paged) page with no more table entries than a
+    PAGED_SHAPES shape (the contiguous kernels, over no more positions,
+    at SERVING's or a FAMILY_SHAPES shape), the SSD at SSD_WIDTHS."""
     for e in engines:
         cfg = e.cfg
+        if cfg.family in ("ssm", "hybrid") and (
+                cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state) \
+                not in SSD_WIDTHS:
+            fail(f"{what}: an engine ran the SSD at (H, P, N) "
+                 f"{(cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state)}, "
+                 "widths phase 3 did not check")
+        if cfg.family == "ssm":
+            continue
         key = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
-               e.prefill_chunk, e.page_size)
-        entries = e.allocator.max_blocks if e.paged else None
-        if not e.paged or not any(
-                (s.h, s.kv, s.d, s.c, s.page) == key and entries <= s.nb
-                for s in SCENARIO_SHAPES):
-            fail(f"{what}: an engine ran at (H, KV, d, chunk, page) {key} "
-                 f"with {entries} table entries, a geometry phase 3 did not "
-                 "check")
+               e.prefill_chunk)
+        if e.paged:
+            ok = any((s.h, s.kv, s.d, s.c, s.page) == key + (e.page_size,)
+                     and e.allocator.max_blocks <= s.nb
+                     for s in PAGED_SHAPES)
+            where = (f"page {e.page_size} with {e.allocator.max_blocks} "
+                     "table entries")
+        else:
+            ok = any((s.h, s.kv, s.d, s.c) == key and e.max_seq <= s.cap
+                     for s in [SERVING, *FAMILY_SHAPES])
+            where = f"a contiguous cache of {e.max_seq} positions"
+        if not ok:
+            fail(f"{what}: an engine ran at (H, KV, d, chunk) {key}, "
+                 f"{where}: a geometry phase 3 did not check")
 
 
 def vehicle_card_vs_cpu(torch, runner) -> None:
@@ -1950,24 +2541,40 @@ def main() -> None:
     from repro_torch.launch import serve
 
     t_start = time.monotonic()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        seconds[name] = round(time.monotonic() - t0, 1)
+        return out
+
     resolve_device("cuda")            # TF32 off for every float32 matmul
-    build_phase(build)
+    timed("build", build_phase, build)
     K = wrappers()
-    measured = kernel_phase(torch, F, K, ref)
+    measured = timed("kernels", kernel_phase, torch, F, K, ref)
     engines, launches = {}, {}
     for path in PATHS:
-        engines[path], counts = serve_phase(torch, serve, K, path)
+        engines[path], counts = timed(path, serve_phase, torch, serve, K,
+                                      path)
         add_counts(launches, counts)
-    profile_phase(torch, engines["paged tinyllama-1.1b"],
-                  engines["mamba2-1.3b"])
-    card_vs_cpu_phase(torch, *engines.values())
+    timed("profile", profile_phase, torch, engines["paged tinyllama-1.1b"],
+          engines["mamba2-1.3b"])
+    timed("card vs CPU", card_vs_cpu_phase, torch, *engines.values())
     del engines
+    gc.collect()
     torch.cuda.empty_cache()
-    add_counts(launches, scenario_phase(torch, K))
-    add_counts(launches, rmsnorm_path_phase(torch, K))
-    add_counts(launches, prefill_phase(torch, K))
-    add_counts(launches, train_phase(torch, K))
-    training_card_vs_cpu_phase(torch)
+    for name, phase, args in (
+            ("families", family_serve_phase, (torch, serve, K)),
+            ("seamless prefill", seamless_prefill_phase, (torch, K)),
+            ("families card vs CPU", family_card_vs_cpu_phase, (torch, K)),
+            ("scenario", scenario_phase, (torch, K)),
+            ("rmsnorm path", rmsnorm_path_phase, (torch, K)),
+            ("prefill", prefill_phase, (torch, K)),
+            ("training", train_phase, (torch, K))):
+        add_counts(launches, timed(name, phase, *args))
+    timed("training card vs CPU", training_card_vs_cpu_phase, torch)
+    log(f"seconds a phase: {seconds}")
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
 
     rows = [dict(name=name, route="cuda", **KERNELS[name],

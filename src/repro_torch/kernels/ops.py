@@ -122,7 +122,18 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (M, Q, H, P); dt/cum: (M, Q, H); b_/c_: (M, Q, N) -> (y (M, Q,
     H, P), state (M, H, P, N)). The kernel on CUDA; the oracle
-    ``ref.ssd_chunk_ref`` on the CPU (the JAX jnp backend's choice)."""
+    ``ref.ssd_chunk_ref`` on the CPU (the JAX jnp backend's choice).
+
+    The kernel has no backward yet, so off the CPU a call that autograd would
+    record raises rather than return outputs without gradients: training
+    the ssm and hybrid families on the card waits for the SSD backward
+    kernel (ROADMAP.md §1 item 4)."""
+    if (x.device.type != "cpu" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, dt, cum, b_, c_))):
+        raise NotImplementedError(
+            "ssd_chunk_scan has no backward kernel yet: gradients through "
+            "the SSD on the card wait for the SSD backward (ROADMAP.md §1 "
+            "item 4); train the ssm and hybrid families on the CPU")
     return ssd_chunk_scan(x, dt, cum, b_, c_)
 
 

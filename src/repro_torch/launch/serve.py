@@ -4,11 +4,15 @@
       --requests 8 --policy chunked            # on the GPU (default)
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-large-v2 --reduced --device cpu
 
 Same CLI as ``repro.launch.serve`` plus ``--device`` and ``--page-size``.
-Each family serves on its own cache: the dense family on the paged KV
-pool, mamba2 on its slot-resident recurrent state (``cache_pages()``).
-Weights are random, drawn from ``--seed``.
+Every config in the registry serves, each family on its own cache: the
+transformer families (dense, moe, vlm), hybrid's attention sublayers and
+enc-dec's decoder self-KV on the paged KV pool, mamba2 on its
+slot-resident recurrent state (``cache_pages()``). Weights are random,
+drawn from ``--seed``.
 """
 from __future__ import annotations
 
@@ -26,11 +30,14 @@ from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.request import chat_trace
 
 
-def main(argv=None, *, paged: "bool | None" = None) -> InferenceEngine:
+def main(argv=None, *, paged: "bool | None" = None,
+         layers: "int | None" = None) -> InferenceEngine:
     """Serve ``--requests`` chat requests to completion; returns the
     engine (its ``done`` requests and ``stats``). ``paged``: the engine's
-    cache (None: the family's own; False: the dense family's contiguous
-    cache) — a keyword for callers, not a flag of the CLI."""
+    cache (None: the family's own; False: the contiguous cache);
+    ``layers``: keep only the first ``layers`` layers (hybrid: whole
+    periods; enc-dec: of the encoder and of the decoder), the widths
+    untouched. Both are keywords for callers, not flags of the CLI."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
@@ -49,6 +56,11 @@ def main(argv=None, *, paged: "bool | None" = None) -> InferenceEngine:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        if cfg.family == "encdec":
+            cfg = dataclasses.replace(cfg, num_encoder_layers=layers,
+                                      num_decoder_layers=layers)
     model = build_model(cfg, device=args.device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     params = model.init(gen)

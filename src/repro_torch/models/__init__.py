@@ -1,1 +1,3 @@
-"""Model code: layers, attention, the dense transformer, weight bridge."""
+"""Model code: layers, attention, the transformer (dense, moe, vlm),
+MoE, Mamba2, the hybrid and the encoder-decoder families, weight
+bridge."""

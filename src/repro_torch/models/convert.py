@@ -71,9 +71,12 @@ def tree_from_flat(flat: "dict[str, np.ndarray]",
 def params_from_jax(flat: "dict[str, np.ndarray]",
                     device: "str | torch.device" = "cuda") -> dict:
     """The port's nested parameter dict from a flat ``{path: ndarray}``
-    mapping of the JAX package's parameters, on ``device``."""
+    mapping of the JAX package's parameters, on ``device``: every
+    family's tree, whose leaves keep the JAX names and shapes (hybrid's
+    ``blocks/sub{i}``, enc-dec's ``encoder``/``decoder``, the MoE expert
+    stacks ``w_gate``/``w_up``/``w_down (E, ...)`` and ``router``)."""
     if any(p.startswith(("__T", "__L")) for path in flat
            for p in path.split("/")):
-        raise ValueError("sequence leaves are not part of the dense "
-                         "transformer's parameters")
+        raise ValueError("sequence leaves are not part of any family's "
+                         "parameters")
     return tree_from_flat(flat, device)

@@ -1,13 +1,15 @@
-"""Uniform model API: training, eval and serving for the dense and ssm
-families.
+"""Uniform model API over every family: training, eval and serving.
 
-Counterpart of :mod:`repro.models.factory`: the dense transformer's
-full-sequence ``forward``, ``loss_fn`` and whole-prompt ``prefill``, and
-its serving steps on the paged pool or the contiguous cache; the Mamba2 LM
-(family ``ssm``), whose recurrent state never pages, serves only (its
-``forward``/``prefill`` need an SSD backward: ROADMAP queue 1, slice 4).
-Other families (moe, vlm, hybrid, encdec) raise ``NotImplementedError``:
-they are ROADMAP queue 1, slice 3.
+Counterpart of :mod:`repro.models.factory`: one :class:`ModelBundle` for
+each config in the registry — dense, moe and vlm
+(:mod:`~repro_torch.models.transformer`, with
+:mod:`~repro_torch.models.moe`), ssm (:mod:`~repro_torch.models.mamba_lm`),
+hybrid (:mod:`~repro_torch.models.hybrid`) and encdec
+(:mod:`~repro_torch.models.encdec`): ``init``, ``forward``, ``loss_fn``,
+whole-prompt ``prefill``, and the serving steps on the paged pool or the
+contiguous cache, with the JAX bundle's dispatch. On the card the SSD
+kernel has no backward yet, so the ssm and hybrid families train on the
+CPU only (ROADMAP.md §1 item 4).
 
 Every step writes its new cache into the caller's tensors in place and
 returns the same dict; the write casts to the cache's own dtypes, the cast
@@ -22,13 +24,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, mamba_lm, transformer
+from repro_torch.models import (encdec, hybrid, layers, mamba_lm,
+                                transformer)
 
 Params = Any
 Cache = dict
-
-#: the families whose serving path is ported
-PORTED_FAMILIES = ("dense", "ssm")
 
 
 @dataclass
@@ -42,27 +42,38 @@ class ModelBundle:
         if torch.device(gen.device).type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on "
                              f"{self.device}")
-        if self.cfg.family == "ssm":
+        f = self.cfg.family
+        if f in ("dense", "moe", "vlm"):
+            return transformer.init_params(gen, self.cfg, dtype)
+        if f == "ssm":
             return mamba_lm.init_params(gen, self.cfg, dtype)
-        return transformer.init_params(gen, self.cfg, dtype)
+        if f == "hybrid":
+            return hybrid.init_params(gen, self.cfg, dtype)
+        if f == "encdec":
+            return encdec.init_params(gen, self.cfg, dtype)
+        raise ValueError(f"unknown family {f}")
 
     # ------------------------------------------------------------ forward
-    def _dense_only(self, what: str) -> None:
-        if self.cfg.family != "dense":
-            raise NotImplementedError(
-                f"{what} of family {self.cfg.family!r} is not ported yet "
-                "(ROADMAP.md queue 1, slice 4: mamba_lm.forward/prefill and "
-                "the SSD backward)")
-
     def forward(self, params: Params, batch: dict, *, remat: str = "full"):
-        """batch -> (logits, aux). Train/eval full-sequence pass."""
-        self._dense_only("forward")
+        """batch -> (logits, aux). Train/eval full-sequence pass: encdec
+        takes ``frames`` beside ``tokens``; the transformer families take
+        ``embeds`` in place of the token embedding."""
+        f = self.cfg.family
+        if f == "encdec":
+            return encdec.forward(params, batch["frames"], batch["tokens"],
+                                  self.cfg, remat=remat)
+        if f == "ssm":
+            return mamba_lm.forward(params, batch["tokens"], self.cfg,
+                                    remat=remat)
+        if f == "hybrid":
+            return hybrid.forward(params, batch["tokens"], self.cfg,
+                                  remat=remat)
         return transformer.forward(params, batch["tokens"], self.cfg,
-                                   remat=remat)
+                                   remat=remat, embeds=batch.get("embeds"))
 
     def loss_fn(self, params: Params, batch: dict, *,
                 remat: str = "full") -> torch.Tensor:
-        """Next-token cross entropy (+0.01·aux, 0 for the dense family)."""
+        """Next-token cross entropy (+0.01·aux for MoE balance)."""
         logits, aux = self.forward(params, batch, remat=remat)
         tokens = batch["tokens"]
         loss = layers.cross_entropy(logits[:, :-1], tokens[:, 1:],
@@ -70,21 +81,38 @@ class ModelBundle:
         return loss + 0.01 * aux
 
     def prefill(self, params: Params, batch: dict, max_seq: int):
-        """Whole-prompt prefill: (logits (B, S, V), the contiguous cache of
-        :meth:`init_cache` holding the prompt)."""
-        self._dense_only("prefill")
+        """Whole-prompt prefill: (logits (B, S, V), the cache of
+        :meth:`init_cache`'s layout holding the prompt — for ssm, the
+        per-layer states)."""
+        f = self.cfg.family
+        if f == "encdec":
+            return encdec.prefill(params, batch["frames"], batch["tokens"],
+                                  self.cfg, max_seq)
+        if f == "ssm":
+            return mamba_lm.prefill(params, batch["tokens"], self.cfg,
+                                    max_seq)
+        if f == "hybrid":
+            return hybrid.prefill(params, batch["tokens"], self.cfg, max_seq)
         return transformer.prefill(params, batch["tokens"], self.cfg,
-                                   max_seq)
+                                   max_seq, embeds=batch.get("embeds"))
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, max_seq: int,
                    dtype=torch.bfloat16) -> Cache:
-        """Slot-resident cache for ``batch`` rows: the dense family's
+        """Slot-resident cache for ``batch`` rows: the attention layers'
         (L, B, max_seq + 1, KV, hd) keys and values (the last position is
-        the drop position), or the ssm family's recurrent state (conv
-        states in ``dtype``, the SSM state in float32)."""
-        if self.cfg.family == "ssm":
+        the drop position), the ssm family's recurrent state (conv states
+        in ``dtype``, the SSM state in float32), hybrid's both, enc-dec's
+        decoder KV and static cross-KV."""
+        f = self.cfg.family
+        if f == "ssm":
             return mamba_lm.init_cache(self.cfg, batch, self.device, dtype)
+        if f == "hybrid":
+            return hybrid.init_cache(self.cfg, batch, max_seq, self.device,
+                                     dtype)
+        if f == "encdec":
+            return encdec.init_cache(self.cfg, batch, max_seq, self.device,
+                                     dtype)
         return transformer.init_cache(self.cfg, batch, max_seq, self.device,
                                       dtype)
 
@@ -94,9 +122,16 @@ class ModelBundle:
         """One decode step for all B rows against the slot-resident cache;
         rows where ``active`` is False keep their cache. Returns (logits
         (B, V), cache)."""
-        if self.cfg.family == "ssm":
+        f = self.cfg.family
+        if f == "ssm":
             return mamba_lm.decode_step(params, cache, tokens, lengths,
                                         self.cfg, active)
+        if f == "hybrid":
+            return hybrid.decode_step(params, cache, tokens, lengths,
+                                      self.cfg, active)
+        if f == "encdec":
+            return encdec.decode_step(params, cache, tokens, lengths,
+                                      self.cfg, active)
         return transformer.decode_step(params, cache, tokens, lengths,
                                        self.cfg, active)
 
@@ -107,9 +142,16 @@ class ModelBundle:
         """Advance every row's prefill by C tokens in one dispatch against
         the slot-resident cache. ``valid``: per-row count of real tokens
         (multi-slot batched prefill). Returns (logits (B, C, V), cache)."""
-        if self.cfg.family == "ssm":
+        f = self.cfg.family
+        if f == "ssm":
             return mamba_lm.prefill_chunk(params, cache, tokens, start_len,
                                           self.cfg, active, valid)
+        if f == "hybrid":
+            return hybrid.prefill_chunk(params, cache, tokens, start_len,
+                                        self.cfg, active, valid)
+        if f == "encdec":
+            return encdec.prefill_chunk(params, cache, tokens, start_len,
+                                        self.cfg, active, valid)
         return transformer.prefill_chunk(params, cache, tokens, start_len,
                                          self.cfg, active, valid)
 
@@ -122,15 +164,22 @@ class ModelBundle:
     DROP_POSITION_KEYS = ("k", "v")
 
     def cache_pages(self) -> bool:
-        """Does this family page its cache? The dense family's growing KV
-        does; the ssm family's O(1) recurrent state is slot-resident by
-        nature — there is nothing to page."""
+        """Does this family page its cache? True for every family with
+        growing attention KV (dense/moe/vlm transformers, hybrid attention
+        sublayers, enc-dec decoder self-KV); the ssm family's O(1)
+        recurrent state is slot-resident by nature — there is nothing to
+        page."""
         return self.cfg.family != "ssm"
 
     def prefix_shareable(self) -> bool:
-        """Finished requests' prompt KV can be reused across requests: the
-        dense transformer's entire prefill state lives in the page pool."""
-        return (self.cache_pages() and self.cfg.family == "dense"
+        """Can finished requests' prompt KV be reused across requests?
+        Only where the ENTIRE prefill state lives in the page pool: pure
+        dense transformers (vlm text stacks included). Hybrid keeps
+        slot-resident SSM state and enc-dec slot-resident cross-KV; MoE
+        routing is batch-coupled (capacity drops), so a donor's KV is not
+        what a fresh prefill would compute."""
+        return (self.cache_pages()
+                and self.cfg.family in ("dense", "vlm")
                 and not self.cfg.is_moe)
 
     def copy_page(self, cache: Cache, src: int, dst: int) -> Cache:
@@ -149,10 +198,18 @@ class ModelBundle:
     def init_paged_cache(self, num_pages: int, page_size: int, batch: int,
                          max_seq: int, dtype=torch.bfloat16) -> Cache:
         """Page-pool cache: ``num_pages`` pages of ``page_size`` tokens per
-        layer, shared by all rows (block tables are engine-side). ``batch``
-        and ``max_seq`` size slot-resident leaves, which the dense family
-        does not have."""
+        layer, shared by all rows (block tables are engine-side); leaves
+        that cannot page (hybrid SSM state, enc-dec cross-KV) stay
+        slot-resident, sized by ``batch`` and ``max_seq``."""
         self._no_pages()
+        f = self.cfg.family
+        if f == "hybrid":
+            return hybrid.init_paged_cache(self.cfg, num_pages, page_size,
+                                           batch, self.device, dtype)
+        if f == "encdec":
+            return encdec.init_paged_cache(self.cfg, num_pages, page_size,
+                                           batch, max_seq, self.device,
+                                           dtype)
         return transformer.init_paged_cache(self.cfg, num_pages, page_size,
                                             self.device, dtype)
 
@@ -170,6 +227,13 @@ class ModelBundle:
         K/V is written into ``cache`` in place. Returns (logits (B, V),
         cache)."""
         self._no_pages()
+        f = self.cfg.family
+        if f == "hybrid":
+            return hybrid.decode_step_paged(params, cache, tokens, lengths,
+                                            block_tables, self.cfg, active)
+        if f == "encdec":
+            return encdec.decode_step_paged(params, cache, tokens, lengths,
+                                            block_tables, self.cfg, active)
         return transformer.decode_step_paged(params, cache, tokens, lengths,
                                              block_tables, self.cfg, active)
 
@@ -183,31 +247,55 @@ class ModelBundle:
         count of real tokens (multi-slot batched prefill). Returns
         (logits (B, C, V), cache)."""
         self._no_pages()
+        f = self.cfg.family
+        if f == "hybrid":
+            return hybrid.prefill_chunk_paged(params, cache, tokens,
+                                              start_len, block_tables,
+                                              self.cfg, active, valid)
+        if f == "encdec":
+            return encdec.prefill_chunk_paged(params, cache, tokens,
+                                              start_len, block_tables,
+                                              self.cfg, active, valid)
         return transformer.prefill_chunk_paged(params, cache, tokens,
                                                start_len, block_tables,
                                                self.cfg, active, valid)
 
     def multi_slot_batchable(self) -> bool:
         """Can ``prefill_chunk(valid=...)`` batch several mid-prefill slots
-        into one dispatch without changing any row's tokens? True for both
-        ported families: a row's compute is independent of the other
-        rows (MoE capacity, which couples them, is not ported)."""
-        return not self.cfg.is_moe
+        into one dispatch without changing any row's tokens? True for every
+        family whose per-token compute is row-independent. False when MoE
+        routing is present (dense MoE, or hybrid with ``moe_every > 0``):
+        expert capacity is assigned by a cumulative sum over ALL tokens in
+        the flattened batch, so co-batched rows change which of a row's
+        tokens get dropped — the engine falls back to per-slot
+        dispatches."""
+        if self.cfg.is_moe:
+            return False
+        return not (self.cfg.family == "hybrid" and self.cfg.moe_every > 0)
 
     # ------------------------------------------------- cache slot slicing
+    def _batch_axis(self, key: str) -> int:
+        """The batch axis of a top-level slot-resident leaf: hybrid's SSM
+        states are (nb, n_ssm, B, ...), every other leaf (L, B, ...)."""
+        return 2 if self.cfg.family == "hybrid" and key == "ssm" else 1
+
     def slice_cache(self, cache: Cache, slot: int) -> Cache:
         """Per-slot view. Page-pool leaves have no batch axis and pass
-        through whole; slot-resident leaves are (L, B, ...) and give their
-        slot, without the contiguous KV's drop position — the JAX bundle's
+        through whole; slot-resident leaves give their slot, the
+        contiguous KV without its drop position — the JAX bundle's
         slice."""
         out = {}
         for k, v in cache.items():
             if k in self.PAGE_KEYS:
                 out[k] = v
+                continue
+            ax = self._batch_axis(k)
+            if isinstance(v, dict):
+                out[k] = {n: t.narrow(ax, slot, 1) for n, t in v.items()}
             elif k in self.DROP_POSITION_KEYS:
                 out[k] = v[:, slot:slot + 1, :v.shape[2] - 1]
             else:
-                out[k] = v[:, slot:slot + 1]
+                out[k] = v.narrow(ax, slot, 1)
         return out
 
     def set_cache_slice(self, cache: Cache, slot: int, piece: Cache) -> Cache:
@@ -216,7 +304,12 @@ class ModelBundle:
         for k, v in cache.items():
             if k in self.PAGE_KEYS:
                 continue
-            dst = v[:, slot:slot + 1]
+            ax = self._batch_axis(k)
+            if isinstance(v, dict):
+                for n, t in v.items():
+                    t.narrow(ax, slot, 1).copy_(piece[k][n])
+                continue
+            dst = v.narrow(ax, slot, 1)
             if k in self.DROP_POSITION_KEYS:
                 dst = dst[:, :, :piece[k].shape[2]]
             dst.copy_(piece[k])
@@ -225,8 +318,4 @@ class ModelBundle:
 
 def build_model(cfg: ModelConfig,
                 device: "str | torch.device" = "cuda") -> ModelBundle:
-    if cfg.family not in PORTED_FAMILIES or cfg.is_moe:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1, "
-            "slice 3: the other families on the serving path)")
     return ModelBundle(cfg, resolve_device(device))

@@ -1,11 +1,12 @@
-"""Mamba2 LM (family=ssm): an attention-free stack of SSD blocks, the
-serving subset.
+"""Mamba2 LM (family=ssm): an attention-free stack of SSD blocks.
 
-Counterpart of :mod:`repro.models.mamba_lm` (``init_params``,
-``init_cache``, ``decode_step``, ``prefill_chunk``; the full-sequence
-``forward``/``prefill`` come with the port's training slice). Layer =
-x + SSD(rmsnorm(x)); no separate FFN. Decode carries an O(1) state per
-layer, so a row's cost does not grow with its context.
+Counterpart of :mod:`repro.models.mamba_lm`: ``init_params``,
+``forward``, ``prefill``, ``init_cache``, ``decode_step`` and
+``prefill_chunk``. Layer = x + SSD(rmsnorm(x)); no separate FFN. Decode
+carries an O(1) state per layer, so a row's cost does not grow with its
+context. ``forward`` runs the SSD kernel on the card, which has no
+backward yet: there a forward that needs gradients raises
+(``ops.ssd_intra_chunk``); on the CPU it trains through the plain path.
 
 The cache is updated IN PLACE: each layer's new state is written into the
 caller's cache tensors, which casts it to their dtypes (conv states in
@@ -18,7 +19,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, ssm
-from repro_torch.models.transformer import layer_view, lm_logits
+from repro_torch.models.transformer import (_remat, layer_view, lm_logits,
+                                            unstack_layers)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
@@ -41,6 +43,43 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
         params["lm_head"] = layers.dense_init(gen, (d, cfg.padded_vocab),
                                               dtype=dtype)
     return params
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            remat: str = "full", return_state: bool = False):
+    """tokens: (B, S) -> (logits (B, S, V), aux 0) or, with
+    ``return_state``, (logits, aux, states): every layer's final state
+    stacked on a leading layer axis (:func:`init_cache`'s leaves). Any
+    ``remat`` but ``none`` recomputes each layer in the backward pass, as
+    the JAX body's ``jax.checkpoint``."""
+    x = layers.embed(params["embedding"], tokens)
+
+    def body(x, lp):
+        h = layers.rmsnorm(x, lp["ln"], cfg.norm_eps)
+        out, state = ssm.ssd_forward(lp["ssm"], h, cfg)
+        return x + out, (state if return_state else None)
+
+    body = _remat(body, "none" if remat == "none" else "full")
+    states = []
+    for lp in unstack_layers(params["layers"], cfg.num_layers):
+        x, st = body(x, lp)
+        states.append(st)
+    logits = lm_logits(params, x, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_state:
+        return logits, aux, {k: torch.stack([st[k] for st in states])
+                             for k in states[0]}
+    return logits, aux
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            max_seq: int = 0):
+    """Run the whole prompt: (logits, the per-layer states) — the JAX
+    prefill's cache, in the dtypes the forward made them (float32 with
+    float32 weights)."""
+    logits, _, states = forward(params, tokens, cfg, remat="none",
+                                return_state=True)
+    return logits, states
 
 
 def init_cache(cfg: ModelConfig, batch: int, device: torch.device,

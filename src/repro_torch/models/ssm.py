@@ -185,7 +185,7 @@ def ssd_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     cum = torch.cumsum(dtc * a[None, None, None], dim=2)            # (B,nc,Q,H)
 
     # ---- intra-chunk quadratic and chunk states: the SSD kernel on the card
-    intra = _intra_chunk_kernel if xh.device.type == "cuda" else _intra_chunk
+    intra = _intra_chunk if xh.device.type == "cpu" else _intra_chunk_kernel
     y_intra, states = intra(xh, dtc, cum, bc, cc)
 
     # ---- inter-chunk recurrence

@@ -1,13 +1,15 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM (dense / moe / vlm families).
 
 Counterpart of :mod:`repro.models.transformer`: the full-sequence
 ``forward`` (training and eval, with the ``none``/``full``/``dots`` remat
-policies) and whole-prompt ``prefill``; the contiguous-cache
-(``init_cache``, ``decode_step``, ``prefill_chunk``) and paged-pool
-(``init_paged_cache``, ``decode_step_paged``, ``prefill_chunk_paged``)
-serving steps. Not ported: the int8-KV hint, the distributed hints of
+policies; the vlm ``embeds`` in place of the token embedding) and
+whole-prompt ``prefill``; the contiguous-cache (``init_cache``,
+``decode_step``, ``prefill_chunk``) and paged-pool (``init_paged_cache``,
+``decode_step_paged``, ``prefill_chunk_paged``) serving steps, whose MoE
+FFNs (:mod:`repro_torch.models.moe`) take the step's ``active`` as their
+token mask. Not ported: the int8-KV hint, the distributed hints of
 ``attention_block`` (``attn_impl="repeat_kv"``, ``attn_kv_replicated``)
-and ``_residual_constraint``, and the vlm ``embeds``. Parameters are a
+and ``_residual_constraint``. Parameters are a
 nested dict with the same leaf names and shapes as the JAX package — the
 einsum layouts ``wq (d, h, hd)``, ``wk``/``wv (d, kv, hd)``,
 ``wo (h, hd, d)`` — with every per-layer leaf stacked on a leading layer
@@ -33,36 +35,47 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 
 # ----------------------------------------------------------------- params
+
+
+def init_attn(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
+              dtype=torch.float32) -> dict:
+    """Random attention weights from ``gen`` in the einsum layouts;
+    ``lead`` prepends stacking axes (the layers)."""
+    d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    attn = {
+        "wq": layers.dense_init(gen, (*lead, d, h, hd), dtype=dtype),
+        "wk": layers.dense_init(gen, (*lead, d, kv, hd), dtype=dtype),
+        "wv": layers.dense_init(gen, (*lead, d, kv, hd), dtype=dtype),
+        "wo": layers.dense_init(gen, (*lead, h, hd, d), dtype=dtype),
+    }
+    if cfg.use_qk_norm:
+        attn["q_norm"] = torch.ones((*lead, hd), device=gen.device)
+        attn["k_norm"] = torch.ones((*lead, hd), device=gen.device)
+    return attn
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 dtype=torch.float32) -> dict:
     """Random weights drawn from ``gen`` on ``gen.device`` (normal, 0.02),
     norms at 1 — the JAX initialiser's shapes and scales, not its numbers
-    (a ``torch.Generator`` and a JAX key give different streams)."""
-    d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    hd, n = cfg.resolved_head_dim, cfg.num_layers
+    (a ``torch.Generator`` and a JAX key give different streams). The moe
+    family's FFN is :func:`moe.init_moe`'s, the others' a SwiGLU MLP."""
+    d, n = cfg.d_model, cfg.num_layers
     dev = gen.device
-    emb = layers.dense_init(gen, (cfg.padded_vocab, d), dtype=dtype)
-    attn = {
-        "wq": layers.dense_init(gen, (n, d, h, hd), dtype=dtype),
-        "wk": layers.dense_init(gen, (n, d, kv, hd), dtype=dtype),
-        "wv": layers.dense_init(gen, (n, d, kv, hd), dtype=dtype),
-        "wo": layers.dense_init(gen, (n, h, hd, d), dtype=dtype),
-    }
-    if cfg.use_qk_norm:
-        attn["q_norm"] = torch.ones((n, hd), device=dev)
-        attn["k_norm"] = torch.ones((n, hd), device=dev)
     params = {
-        "embedding": emb,
+        "embedding": layers.dense_init(gen, (cfg.padded_vocab, d),
+                                       dtype=dtype),
         "layers": {
             "ln1": torch.ones((n, d), device=dev),
             "ln2": torch.ones((n, d), device=dev),
-            "attn": attn,
-            "ffn": layers.init_mlp(gen, d, cfg.d_ff, lead=(n,), dtype=dtype),
+            "attn": init_attn(gen, cfg, (n,), dtype),
+            "ffn": (moe.init_moe(gen, cfg, lead=(n,), dtype=dtype)
+                    if cfg.is_moe else
+                    layers.init_mlp(gen, d, cfg.d_ff, lead=(n,), dtype=dtype)),
         },
         "ln_f": torch.ones((d,), device=dev),
     }
@@ -89,24 +102,29 @@ def unstack_layers(stacked: dict, n: int) -> list[dict]:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device: torch.device, dtype=torch.bfloat16) -> dict:
+               device: torch.device, dtype=torch.bfloat16,
+               num_layers: int | None = None) -> dict:
     """Contiguous KV cache, ``(L, B, max_seq + 1, KV, hd)``: each row's
     slot of ``max_seq`` positions plus one, the drop position
-    (:func:`cache_write_index`), which attention never reads."""
-    shape = (cfg.num_layers, batch, max_seq + 1, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    (:func:`cache_write_index`), which attention never reads. ``L`` is
+    ``num_layers`` where given (the attention layers of a hybrid or the
+    decoder of an enc-dec model), else ``cfg.num_layers``."""
+    shape = (num_layers or cfg.num_layers, batch, max_seq + 1,
+             cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device: torch.device, dtype=torch.bfloat16) -> dict:
+                     device: torch.device, dtype=torch.bfloat16,
+                     num_layers: int | None = None) -> dict:
     """Page-pool KV cache: ``num_pages`` shared pages of ``page_size``
     tokens per layer, ``(L, num_pages + 1, page, KV, hd)``; rows address
     them through engine-side block tables. The extra last page is the drop
-    page (:func:`paged_write_index`): no block table names it."""
-    shape = (cfg.num_layers, num_pages + 1, page_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    page (:func:`paged_write_index`): no block table names it. ``L`` as in
+    :func:`init_cache`."""
+    shape = (num_layers or cfg.num_layers, num_pages + 1, page_size,
+             cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -279,6 +297,17 @@ def attention_prefill_chunk_block_paged(p: dict, x: torch.Tensor,
     return torch.einsum("bshe,hed->bsd", o.to(x.dtype), p["wo"])
 
 
+def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
+         token_mask: torch.Tensor | None = None):
+    """The layer's feed-forward: (out, aux). The MoE family routes through
+    ``moe.moe_dispatch`` (``token_mask``: the serving rows that count);
+    the dense MLP's aux is 0."""
+    if cfg.is_moe:
+        return moe.moe_dispatch(p, x, cfg, token_mask)
+    return layers.mlp(p, x), torch.zeros((), dtype=torch.float32,
+                                         device=x.device)
+
+
 def _write_mask(b: int, c: int, device, active, valid) -> torch.Tensor:
     """(B, C) bool: which of the dispatch's new tokens reach the cache
     (the others go to the drop page or drop position)."""
@@ -291,26 +320,27 @@ def _write_mask(b: int, c: int, device, active, valid) -> torch.Tensor:
     return keep
 
 
-def lm_logits(params: dict, x: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
-    """Final norm, then the (tied or separate) LM head."""
+def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              tied: bool | None = None) -> torch.Tensor:
+    """Final norm, then the LM head: the embedding's transpose where
+    ``tied`` (default: the config's ``tie_embeddings``), else ``lm_head``."""
     x = layers.rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings if tied is None else tied:
         return layers.unembed(x, params["embedding"], transpose=True)
     return layers.unembed(x, params["lm_head"], transpose=False)
 
 
 def _run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                attend) -> torch.Tensor:
+                attend, token_mask: torch.Tensor | None) -> torch.Tensor:
     """Every pre-norm block, then the logits. ``attend(i, p_attn, h)`` is
     layer i's attention on its normed input ``h`` (it writes the layer's
-    cache)."""
+    cache); ``token_mask`` (the step's ``active``) reaches the MoE FFN."""
     for i in range(cfg.num_layers):
         lp = layer_view(params["layers"], i)
         h = layers.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         x = x + attend(i, lp["attn"], h)
         h2 = layers.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + layers.mlp(lp["ffn"], h2)
+        x = x + _ffn(lp["ffn"], h2, cfg, token_mask)[0]
     return lm_logits(params, x, cfg)
 
 
@@ -343,15 +373,17 @@ def _remat(fn, policy: str):
     raise ValueError(f"remat policy {policy!r}: none, full or dots")
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            remat: str = "full", causal: bool = True,
-            return_cache: bool = False):
-    """tokens: (B, S) int. Returns (logits (B, S, V), aux_loss) or
-    (logits, aux_loss, cache) with cache = {"k": (L, B, S, KV, hd),
-    "v": ...} (the rotated keys and the values, in the activations' dtype)
-    when ``return_cache``. ``aux_loss`` is 0: the dense family has no MoE
-    balance term."""
-    x = layers.embed(params["embedding"], tokens)
+def forward(params: dict, tokens: torch.Tensor | None, cfg: ModelConfig, *,
+            remat: str = "full", embeds: torch.Tensor | None = None,
+            causal: bool = True, return_cache: bool = False):
+    """tokens: (B, S) int, or ``embeds``: (B, S, D) in place of the token
+    embedding (the vlm frontend stub; ``tokens`` may then be None).
+    Returns (logits (B, S, V), aux_loss) or (logits, aux_loss, cache) with
+    cache = {"k": (L, B, S, KV, hd), "v": ...} (the rotated keys and the
+    values, in the activations' dtype) when ``return_cache``. ``aux_loss``
+    sums the MoE layers' balance terms (0 without experts)."""
+    x = (embeds if embeds is not None
+         else layers.embed(params["embedding"], tokens))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     def body(x, lp):
@@ -359,40 +391,48 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         attn_out, kv = attention_block(lp["attn"], h, cfg, positions, causal)
         x = x + attn_out
         h2 = layers.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + layers.mlp(lp["ffn"], h2)
-        return x, (kv if return_cache else None)
+        ffn_out, a = _ffn(lp["ffn"], h2, cfg)
+        return x + ffn_out, a, (kv if return_cache else None)
 
     body = _remat(body, remat)
     ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in unstack_layers(params["layers"], cfg.num_layers):
-        x, kv = body(x, lp)
+        x, a, kv = body(x, lp)
+        aux = aux + a
         if return_cache:
             ks.append(kv[0])
             vs.append(kv[1])
     logits = lm_logits(params, x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_cache:
         return logits, aux, {"k": torch.stack(ks), "v": torch.stack(vs)}
     return logits, aux
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            max_seq: int):
-    """Run the whole prompt; return (logits (B, S, V), cache) with the
-    cache in :func:`init_cache`'s layout — (L, B, max_seq + 1, KV, hd)
-    bfloat16, the prompt's keys/values in the first S positions, zeros
-    after them and in the drop position — ready for :func:`decode_step`.
-    JAX pads its cache to ``max_seq``; a prompt longer than ``max_seq`` is
-    refused here (the port's cache has a fixed slot)."""
-    b, s = tokens.shape
+def fill_cache(cache: dict, kv: dict, s: int) -> dict:
+    """Write a whole prompt's (L, B, S, KV, hd) keys/values into the first
+    ``s`` positions of a contiguous cache from :func:`init_cache`."""
+    cache["k"][:, :, :s] = kv["k"]
+    cache["v"][:, :, :s] = kv["v"]
+    return cache
+
+
+def prefill(params: dict, tokens: torch.Tensor | None, cfg: ModelConfig,
+            max_seq: int, embeds: torch.Tensor | None = None):
+    """Run the whole prompt (``tokens`` (B, S), or ``embeds`` (B, S, D)
+    for the vlm stub); return (logits (B, S, V), cache) with the cache in
+    :func:`init_cache`'s layout — (L, B, max_seq + 1, KV, hd) bfloat16,
+    the prompt's keys/values in the first S positions, zeros after them
+    and in the drop position — ready for :func:`decode_step`. JAX pads its
+    cache to ``max_seq``; a prompt longer than ``max_seq`` is refused here
+    (the port's cache has a fixed slot)."""
+    b, s = (tokens if tokens is not None else embeds).shape[:2]
     if s > max_seq:
         raise ValueError(f"prompt of {s} tokens exceeds max_seq {max_seq}")
     logits, _, kv = forward(params, tokens, cfg, remat="none",
-                            return_cache=True)
+                            embeds=embeds, return_cache=True)
     cache = init_cache(cfg, b, max_seq, logits.device)
-    cache["k"][:, :, :s] = kv["k"]
-    cache["v"][:, :, :s] = kv["v"]
-    return logits, cache
+    return logits, fill_cache(cache, kv, s)
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -410,7 +450,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     logits = _run_layers(params, x, cfg, lambda i, p, h:
                          attention_decode_block(p, h, cfg, cache["k"][i],
                                                 cache["v"][i], lengths,
-                                                index))
+                                                index), active)
     return logits[:, 0], cache
 
 
@@ -433,7 +473,7 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
     logits = _run_layers(params, x, cfg, lambda i, p, h:
                          attention_prefill_chunk_block(
                              p, h, cfg, cache["k"][i], cache["v"][i],
-                             start_len, index))
+                             start_len, index), active)
     return logits, cache
 
 
@@ -454,7 +494,7 @@ def decode_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
                          attention_decode_block_paged(
                              p, h, cfg, cache["k_pages"][i],
                              cache["v_pages"][i], block_tables, lengths,
-                             index))
+                             index), active)
     return logits[:, 0], cache
 
 
@@ -479,5 +519,5 @@ def prefill_chunk_paged(params: dict, cache: dict, tokens: torch.Tensor,
                          attention_prefill_chunk_block_paged(
                              p, h, cfg, cache["k_pages"][i],
                              cache["v_pages"][i], block_tables, start_len,
-                             index))
+                             index), active)
     return logits, cache

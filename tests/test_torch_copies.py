@@ -147,9 +147,10 @@ def test_every_copy_is_listed():
 
 
 def test_encdec_frame_arithmetic_is_the_originals():
-    """``models/encdec.py`` holds only the two definitions the roofline
-    analysis reads, each as the original writes it (the family itself is
-    not ported)."""
+    """``models/encdec.py``'s frame arithmetic, which the roofline
+    analysis reads, is written as the original writes it (the rest of the
+    module is the family's port, held to the JAX package by
+    tests/test_torch_families.py)."""
     def defs(path):
         src = (ROOT / path).read_text()
         return {n.targets[0].id if isinstance(n, ast.Assign) else n.name:
@@ -157,7 +158,6 @@ def test_encdec_frame_arithmetic_is_the_originals():
                 for n in ast.parse(src).body
                 if isinstance(n, (ast.Assign, ast.FunctionDef))}
     port = defs("repro_torch/models/encdec.py")
-    assert sorted(port) == ["FRAME_RATIO", "frames_len"]
     orig = defs("repro/models/encdec.py")
-    for name, text in port.items():
-        assert text == orig[name]
+    for name in ("FRAME_RATIO", "frames_len"):
+        assert port[name] == orig[name]

@@ -177,9 +177,9 @@ def test_ssm_engine_streams_and_stats_match_jax(mamba, policy):
 
 def test_engine_refuses_what_is_not_ported(models, mamba, tmp_path,
                                            monkeypatch):
-    """What stays refused: the paged cache for mamba2 (as in JAX) and the
-    families whose serving path is not ported (moe, vlm, hybrid, encdec).
-    An engine built without ``page_size`` and ``prefill_chunk`` starts:
+    """What stays refused: the paged cache for mamba2 (as in JAX; the
+    other families' refusals are in tests/test_torch_families.py). An
+    engine built without ``page_size`` and ``prefill_chunk`` starts:
     it takes the tuner's picks, which are the JAX engine's (each package's
     tuner on its own empty cache file)."""
     from repro.kernels import autotune as jtune
@@ -212,14 +212,6 @@ def test_engine_refuses_what_is_not_ported(models, mamba, tmp_path,
     with pytest.raises(ValueError, match="exceeding the page budget"):
         TEngine(tm, max_slots=4, max_seq=64, prefill_chunk=4, paged=False,
                 kv_pages=8, page_size=4)
-    dense = TCONFIGS["tinyllama-1.1b"].reduced()
-    for cfg in (dataclasses.replace(dense, family="moe", num_experts=4,
-                                    num_experts_per_token=2),
-                dataclasses.replace(dense, family="vlm"),
-                dataclasses.replace(sm.cfg, family="hybrid"),
-                dataclasses.replace(dense, family="encdec")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tbuild(cfg, "cpu")
 
 
 @pytest.mark.parametrize("name", ["eviction", "mixed", "prefix_cache"])

@@ -124,12 +124,3 @@ def test_flash_attention_cuda_route_raises_when_the_library_cannot_load(
     with pytest.raises(RuntimeError, match="cannot load flash_attention_bwd"):
         fa.flash_attention_bwd(q, k, k, q.detach(), lse, q.detach())
 
-
-def test_other_families_are_refused():
-    from repro_torch.configs.base import ModelConfig
-    from repro_torch.models.factory import build_model
-    cfg = ModelConfig(name="m", family="moe", num_layers=1, d_model=8,
-                      num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=16,
-                      num_experts=2, num_experts_per_token=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, "cpu")

@@ -519,12 +519,29 @@ def test_prefill_matches_jax_and_feeds_decode(pair):
 
 
 def test_forward_is_refused_for_the_ssm_family():
+    """Off the CPU the ssm family's forward runs the SSD kernel, which has
+    no backward yet: a forward that needs gradients raises there (shown
+    on the meta device, which takes the kernel's route), while the same
+    forward without gradients goes on to the kernel's wrapper (which
+    takes only the CPU or a card). On the CPU it trains."""
     model = tbuild(TCONFIGS["mamba2-1.3b"].reduced(), "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    meta = _tree_map(params, lambda t: t.to("meta").requires_grad_(True))
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32,
+                                   device="meta")}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.forward({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                      8)
+        model.forward(meta, batch, remat="none")
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
+        model.forward(meta, batch, remat="none")
+    cpu = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    model.loss_fn(_tree_map(params, lambda t: t.requires_grad_(True)),
+                  cpu).backward()
+    assert params["layers"]["ssm"]["w_x"].grad.abs().sum() > 0
+
+
+def _tree_map(node, fn):
+    return {k: _tree_map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in node.items()}
 
 
 # ----------------------------------------------------------------- CLI
