@@ -107,6 +107,28 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               layers on both): logits must agree within 1e-3 absolute with
               float32 caches and 2e-2 with the bfloat16 serving caches
               (card_vs_cpu says why).
+   hints    — the hint layer (repro_torch.distributed.hints): (a) the
+              int8-KV path, tinyllama-1.1b at full width under
+              kv_cache_dtype="int8" through the same CLI and trace (the
+              engine takes the contiguous cache of int8 keys and values
+              with bf16 scales; kernels #3 and #4 read it dequantized to
+              float32, a dtype phase 3 checks at this geometry), launches
+              exact, its cache's bytes against the bf16 cache's
+              ((64 + 2) / 128 exactly), TTFT and TPOT beside phase 4's
+              bf16 contiguous path, a decode step and a prefill chunk of
+              each cache profiled; then kernels #3 and #4 at the reduced
+              config's contiguous geometry on float32 caches, and the
+              reduced config served under the hint on the card and the
+              CPU (6 requests, mixed): equal token streams; (b) kernel #6
+              and its backward at one query head a KV head (the
+              attn_impl="repeat_kv" geometry: 32 heads of 64 over 32, S
+              2048 causal in float32 and bfloat16, and 1 x 256 float32)
+              against their plain versions, the forward timed beside the
+              grouped call (KV 4), its plain version and SDPA; then 2
+              AdamW steps at full width cut to 2 layers under
+              best_hints(cfg, "train") (repeat_kv, bf16 flash logits,
+              remat dots), launches exact, each loss within 1e-4 of the
+              CPU's from the same weights.
    families — the same CLI and trace at full width on the vlm, moe,
               hybrid and encdec families, one at a time, each cut in depth
               only as far as one card forces and the cut printed:
@@ -1337,6 +1359,17 @@ FAMILY_PATHS = {
 }
 
 
+#: the int8-KV path (the ``kv_cache_dtype="int8"`` hint, set around the
+#: engine's construction): tinyllama-1.1b on the contiguous cache of int8
+#: keys and values with per-(token, head) bf16 scales, kernels #3 and #4
+#: reading it dequantized to float32 — phase 4's contiguous geometry
+HINT_PATHS = {
+    "int8 tinyllama-1.1b": dict(
+        argv=SERVE_ARGV, paged=None, cache="contiguous", layers=22,
+        d_model=2048, hints={"kv_cache_dtype": "int8"}),
+}
+
+
 def serving_launches(engine, plans) -> dict:
     """Each kernel's launches that a run of ``engine`` must have made,
     from its EngineStats and its PrefillPlans ``plans``: one a layer per
@@ -1402,9 +1435,13 @@ def serve_phase(torch, serve, K, path):
     process and shape, not per request), then the measured run with every
     kernel's launch count set to 0 just before it and read just after:
     exactly serving_launches' counts, at a geometry phase 3 checked."""
-    spec = PATHS.get(path) or FAMILY_PATHS[path]
-    run = functools.partial(serve.main, spec["argv"], paged=spec["paged"],
-                            layers=spec.get("cut"))
+    from repro_torch.distributed import hints
+    spec = {**PATHS, **FAMILY_PATHS, **HINT_PATHS}[path]
+
+    def run():
+        with hints.hints(**spec.get("hints", {})):
+            return serve.main(spec["argv"], paged=spec["paged"],
+                              layers=spec.get("cut"))
     t0 = time.monotonic()
     run()
     torch.cuda.synchronize()
@@ -1450,6 +1487,13 @@ def serve_phase(torch, serve, K, path):
         f"{plans.per_slot} per-slot in place of multi-slot")
     log(f"{path}: EngineStats {json.dumps(dataclasses.asdict(st))}")
     return engine, counts
+
+
+def medians(engine) -> tuple[float, float]:
+    """TTFT and TPOT medians of an engine's finished requests, seconds."""
+    ttft = sorted(r.ttft for r in engine.done)
+    tpot = sorted(r.tpot for r in engine.done)
+    return ttft[len(ttft) // 2], tpot[len(tpot) // 2]
 
 
 def device_rows(torch, prof, n):
@@ -1549,7 +1593,9 @@ def dispatch_inputs(torch, vocab, dev):
 def profile_phase(torch, paged_engine, mamba_engine):
     """Where one full-width dispatch spends its time: a decode step and a
     16-token prefill chunk (4 rows, 40-63 cached tokens) on the paged
-    tinyllama path and on mamba2."""
+    tinyllama path (10 calls each) and on mamba2 (5 calls each: ~4,100
+    kernels a dispatch, whose events the profiler takes seconds to
+    process)."""
     dev = torch.device("cuda")
     model, params = paged_engine.model, paged_engine.params
     cache = model.init_paged_cache(1 + 4 * NB, PAGE, B, S)
@@ -1572,7 +1618,7 @@ def profile_phase(torch, paged_engine, mamba_engine):
                                                  act),
         "prefill chunk": lambda: model.prefill_chunk(params, cache, tokc, ln,
                                                      act, None),
-    })
+    }, n=5)
 
 
 CARD_VS_CPU_ATOL = {"float32": 1e-3, "bfloat16": 2e-2}
@@ -2194,6 +2240,243 @@ def training_card_vs_cpu_phase(torch):
 
 
 
+# ------------------------------------------------------------ phase 5c
+#: the reduced config the hints phase serves on the card and the CPU
+#: (tinyllama-1.1b reduced, 4 layers: 4 heads of 16 over 2 KV heads;
+#: chunk 8, max-seq 64): kernels #3 and #4 are checked at this contiguous
+#: geometry there first, on float32 caches (what the int8 path hands them)
+REDUCED_CONTIGUOUS = PagedShape("tinyllama reduced", 4, 2, 16, 8, 64, 1)
+#: kernel #6 at one query head a KV head (attn_impl="repeat_kv" at full
+#: width: 32 heads of 64 over 32 KV heads, causal): (rows, sequence,
+#: dtype); the S 2048 cases are timed, the last is the geometry of the
+#: phase's training steps
+G1_CASES = [(B, 2048, "float32"), (B, 2048, "bfloat16"), (1, 256, "float32")]
+#: the training steps under best_hints(cfg, "train"): full width cut to
+#: HINT_TRAIN_LAYERS layers, HINT_TRAIN_STEPS AdamW steps of 1 x 256
+HINT_TRAIN_LAYERS, HINT_TRAIN_STEPS = 2, 2
+
+
+def int8_serving(torch, serve, K, contiguous) -> dict:
+    """The int8 path at full width (served and counted by serve_phase),
+    its cache's bytes and latencies against the bf16 contiguous engine
+    ``contiguous`` of phase 4, and a decode step and a prefill chunk of
+    each cache profiled for the device's busy share. Returns the
+    launches."""
+    from repro_torch.distributed import hints
+    path = "int8 tinyllama-1.1b"
+    engine, counts = serve_phase(torch, serve, K, path)
+    cache = engine.cache
+    if cache["k"].dtype != torch.int8 or "k_scale" not in cache \
+            or cache["k_scale"].dtype != torch.bfloat16:
+        fail(f"{path}: the engine's cache is not int8 with bf16 scales: "
+             f"{ {k: str(t.dtype) for k, t in cache.items()} }")
+    nbytes = [sum(t.numel() * t.element_size() for t in c.values())
+              for c in (cache, contiguous.cache)]
+    hd = cache["k"].shape[-1]
+    want = (hd + 2) / (2 * hd)
+    if abs(nbytes[0] / nbytes[1] - want) > 1e-9:
+        fail(f"{path}: cache bytes {nbytes[0]} / bf16 {nbytes[1]} != {want}")
+    (t8, p8), (t16, p16) = medians(engine), medians(contiguous)
+    log(f"{path}: cache {nbytes[0] / 2**20:.2f} MiB int8 + scales against "
+        f"{nbytes[1] / 2**20:.2f} MiB bf16 (ratio "
+        f"{nbytes[0] / nbytes[1]:.4f} = (d + 2) / 2d); TTFT median "
+        f"{t8:.4f}s (bf16 contiguous {t16:.4f}s), TPOT median {p8:.5f}s "
+        f"({p16:.5f}s), same run")
+    dev = torch.device("cuda")
+    model, params = engine.model, engine.params
+    with hints.hints(kv_cache_dtype="int8"):
+        c8 = model.init_cache(B, S)
+    c16 = model.init_cache(B, S)
+    ln, act, tok1, tokc = dispatch_inputs(torch, engine.cfg.vocab_size, dev)
+    profile_dispatches(torch, "contiguous tinyllama-1.1b", {
+        f"{name} decode step": functools.partial(
+            model.decode_step, params, c, tok1, ln, act)
+        for name, c in (("int8", c8), ("bf16", c16))} | {
+        f"{name} prefill chunk": functools.partial(
+            model.prefill_chunk, params, c, tokc, ln, act, None)
+        for name, c in (("int8", c8), ("bf16", c16))}, n=5)
+    del engine, model, params, c8, c16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def int8_card_vs_cpu(torch, K, ref) -> dict:
+    """Kernels #3 and #4 at REDUCED_CONTIGUOUS on float32 caches, then the
+    reduced config served under the int8 hint by InferenceEngine on both
+    devices from one set of weights (drawn on the CPU and moved), 6 chat
+    requests under ``mixed``: equal token streams, the card's launches
+    exactly serving_launches'. Returns the launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import hints
+    from repro_torch.models.factory import build_model
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.request import chat_trace
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    shape = REDUCED_CONTIGUOUS
+    errs = (contiguous_decode_case(torch, K, ref, gen, dev, shape,
+                                   [5, 23, shape.cap, 0], torch.float32)[0],
+            contiguous_prefill_case(torch, K, ref, gen, dev, shape,
+                                    [0, 3, 21, shape.cap - shape.c],
+                                    torch.float32)[0])
+    log(f"contiguous kernels at {shape.label} (H {shape.h}, KV {shape.kv}, "
+        f"d {shape.d}, chunk {shape.c}, {shape.cap} positions, float32 "
+        f"caches): max abs err decode {errs[0]:.3e}, prefill {errs[1]:.3e} "
+        f"(tol {ATOL} + {RTOL}*|plain|), repeats bitwise equal")
+    cfg = get_config("tinyllama-1.1b").reduced()
+    cpu, card = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+    cpu_params = cpu.init(torch.Generator().manual_seed(0))
+    card_params = _tree(cpu_params, lambda t: t.cuda())
+    launches, streams = {}, []
+    for model, params in ((card, card_params), (cpu, cpu_params)):
+        with hints.hints(kv_cache_dtype="int8"):
+            engine = InferenceEngine(model, max_slots=B, max_seq=shape.cap,
+                                     policy="mixed", prefill_chunk=shape.c)
+        if engine.paged or engine.cache["k"].dtype != torch.int8:
+            fail("int8 reduced: the engine did not take the int8 cache")
+        engine.load_params(params)
+        for req in chat_trace(6, cfg.vocab_size, mean_prompt=14, max_new=8,
+                              seed=11):
+            engine.submit(req)
+        zero_counts(K)
+        with PrefillPlans(InferenceEngine) as plans:
+            done = engine.run()
+        if model is card:
+            torch.cuda.synchronize()
+            launches = check_launches(K, "int8 reduced, served on the card",
+                                      serving_launches(engine, plans))
+            check_geometry("int8 reduced", [engine], [shape])
+        streams.append(sorted((r.request_id, list(r.tokens_out))
+                              for r in done))
+    if len(streams[0]) != 6 or streams[0] != streams[1]:
+        fail(f"int8 reduced: the card's token streams differ from the "
+             f"CPU's: {streams[0]} vs {streams[1]}")
+    log(f"card vs CPU, tinyllama-1.1b reduced under int8 KV: token streams "
+        f"equal ({sum(len(t) for _, t in streams[0])} tokens, 6 requests, "
+        f"mixed; {plans.multi} multi-slot prefill dispatches)")
+    return launches
+
+
+def flash_g1_checks(torch, F, K, ref) -> None:
+    """Kernel #6 and its backward at G1_CASES against their plain versions
+    (the forward called twice, bitwise equal); at S 2048 the forward timed
+    beside the grouped call on the same queries (KV 4), the plain version
+    and SDPA."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    fwd, bwd = K["flash_attention"], K["flash_attention_bwd"]
+    for b, s, dname in G1_CASES:
+        dtype = getattr(torch, dname)
+        tol = ATOL if dname == "float32" else BF16_TOL
+        q, k, v = flash_inputs(torch, gen, dev, s, s, dtype, b=b, kv=H)
+        what = f"flash_attention[G=1: B={b} S={s} H=KV={H} d={D} {dname}]"
+        o, lse = fwd(q, k, v, causal=True, return_lse=True)
+        err = check_close(what, o, ref.flash_attention_ref(q, k, v,
+                                                           causal=True), tol)
+        lse_err = check_close(what + " lse", lse,
+                              ref.flash_attention_lse_ref(q, k, causal=True))
+        check_repeat(torch, what, lambda: fwd(q, k, v, causal=True), o)
+        do = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
+        got = bwd(q, k, v, o, lse, do, causal=True)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        berr = [check_close(f"{what} backward {n}", g, w, tol)
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+        del got, want
+        line = (f"{what}: max abs err {err:.3e}, lse {lse_err:.3e}, "
+                f"backward dq/dk/dv {'/'.join(f'{e:.3e}' for e in berr)} "
+                f"(tol {tol} + {tol}*|plain|), repeats bitwise equal")
+        if s == 2048:
+            pairs = b * H * flash_pairs(s, s, True)
+            bound = flash_bound_entry(q.element_size() * 4 * b * H * s * D,
+                                      4 * D * pairs, pairs,
+                                      bf16=dname == "bfloat16")
+            _, kg, vg = flash_inputs(torch, gen, dev, s, s, dtype, b=b)
+            ms = timed_ms(torch, lambda: fwd(q, k, v, causal=True), 10)
+            grouped = timed_ms(torch, lambda: fwd(q, kg, vg, causal=True), 10)
+            plain_ms = timed_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v, causal=True), 5)
+            lib_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), 10)
+            line += (f" | kernel {ms:.4f} ms | grouped (KV {KV}) "
+                     f"{grouped:.4f} ms | plain {plain_ms:.4f} ms | sdpa "
+                     f"{lib_ms:.4f} ms | bound {bound[0]:.4f} ms "
+                     f"({bound[1]})")
+            del kg, vg
+        log(line)
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+
+
+def hinted_training(torch, K) -> dict:
+    """HINT_TRAIN_STEPS AdamW steps of tinyllama-1.1b at full width cut to
+    HINT_TRAIN_LAYERS layers under best_hints(cfg, "train") (repeat_kv,
+    bf16 flash logits, remat dots), on the card between a zero of the
+    counts and their exact check, and on the CPU from the same weights:
+    each step's loss within the card-vs-CPU loss tolerance (1e-4). Returns
+    the launches."""
+    from repro_torch.distributed import hints
+    from repro_torch.distributed.autotune import best_hints
+    from repro_torch.models.factory import build_model
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.training.train_step import make_train_step
+    model, params = tinyllama(torch, layers=HINT_TRAIN_LAYERS)
+    cfg = model.cfg
+    hint, remat = best_hints(cfg, "train")
+    if hint.get("attn_impl") != "repeat_kv" or remat != "dots":
+        fail(f"best_hints(tinyllama-1.1b, train) = {hint}, {remat}")
+    b, s, _ = G1_CASES[-1]
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, s, b, seed=0))
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=10)
+    losses = []
+    for m, p in ((model, params),
+                 (build_model(cfg, "cpu"), _tree(params, lambda t: t.cpu()))):
+        _, step = make_train_step(m, opt_cfg, remat=remat)
+        state = (p, adamw_init(p))
+        if m is model:
+            zero_counts(K)
+        with hints.hints(**hint):
+            for i in range(HINT_TRAIN_STEPS):
+                *state, metrics = step(*state, data.batch(i))
+                losses.append(metrics["loss"].item())
+        if m is model:
+            torch.cuda.synchronize()
+            n = HINT_TRAIN_LAYERS * HINT_TRAIN_STEPS
+            counts = check_launches(K, "hinted training", {
+                "flash_attention": 2 * n, "flash_attention_bwd": n})
+    card, cpu = losses[:HINT_TRAIN_STEPS], losses[HINT_TRAIN_STEPS:]
+    dl = max(abs(a - c) for a, c in zip(card, cpu))
+    if not all(math.isfinite(x) for x in card) or dl > 1e-4:
+        fail(f"hinted training: card losses {card} vs CPU {cpu}")
+    log(f"training under {hint}, remat {remat} ({HINT_TRAIN_LAYERS} of 22 "
+        f"layers, {HINT_TRAIN_STEPS} AdamW steps of {b} x {s}): card losses "
+        f"{card}, CPU {cpu}: within {dl:.3e} (tol 1e-4); the flash kernels "
+        f"at G = 1")
+    del model, params, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def hints_phase(torch, F, K, ref, serve, contiguous) -> dict:
+    """(a) the int8-KV serving path at full width and reduced on both
+    devices; (b) kernel #6 at one query head a KV head, and training steps
+    under the per-cell hint table. Returns the launches of the counted
+    runs."""
+    launches: dict = {}
+    seconds = []
+    for part, args in ((int8_serving, (torch, serve, K, contiguous)),
+                       (int8_card_vs_cpu, (torch, K, ref)),
+                       (flash_g1_checks, (torch, F, K, ref)),
+                       (hinted_training, (torch, K))):
+        t0 = time.monotonic()
+        add_counts(launches, part(*args) or {})
+        seconds.append(f"{part.__name__} {time.monotonic() - t0:.1f}s")
+    log(f"hints phase: {', '.join(seconds)}")
+    return launches
+
+
 # ------------------------------------------------------------ phase 5b
 #: the paper's three-app concurrent workload (benchmarks/common.py,
 #: standard_scenario at its smoke counts) under the five fig5 policies
@@ -2307,12 +2590,13 @@ def token_streams(engines) -> list:
                    for r in e.done) for e in engines]
 
 
-def check_geometry(what, engines) -> None:
+def check_geometry(what, engines, contiguous=None) -> None:
     """Every engine ran its kernels at a geometry that phase 3 held
     against their plain versions: the attention kernels at the same heads,
     head dim, chunk and (paged) page with no more table entries than a
     PAGED_SHAPES shape (the contiguous kernels, over no more positions,
-    at SERVING's or a FAMILY_SHAPES shape), the SSD at SSD_WIDTHS."""
+    at a ``contiguous`` shape: SERVING's or a FAMILY_SHAPES shape unless
+    given), the SSD at SSD_WIDTHS."""
     for e in engines:
         cfg = e.cfg
         if cfg.family in ("ssm", "hybrid") and (
@@ -2333,7 +2617,7 @@ def check_geometry(what, engines) -> None:
                      "table entries")
         else:
             ok = any((s.h, s.kv, s.d, s.c) == key and e.max_seq <= s.cap
-                     for s in [SERVING, *FAMILY_SHAPES])
+                     for s in contiguous or [SERVING, *FAMILY_SHAPES])
             where = f"a contiguous cache of {e.max_seq} positions"
         if not ok:
             fail(f"{what}: an engine ran at (H, KV, d, chunk) {key}, "
@@ -2561,6 +2845,8 @@ def main() -> None:
     timed("profile", profile_phase, torch, engines["paged tinyllama-1.1b"],
           engines["mamba2-1.3b"])
     timed("card vs CPU", card_vs_cpu_phase, torch, *engines.values())
+    add_counts(launches, timed("hints", hints_phase, torch, F, K, ref, serve,
+                               engines["contiguous tinyllama-1.1b"]))
     del engines
     gc.collect()
     torch.cuda.empty_cache()

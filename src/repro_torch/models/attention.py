@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import hints
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -54,7 +55,10 @@ def _flash_one_qblock(qg: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
 
     Online softmax over the nj KV blocks in order (JAX's ``lax.scan``);
     only the last (diagonal) block gets the triangular mask when
-    ``diag_mask``. Returns (B, qb, KV, G, d) in qg's dtype."""
+    ``diag_mask``. Under the ``attn_logits_bf16`` hint each block's logits
+    and probabilities are rounded to bfloat16, the running max, sum and
+    accumulator kept in float32, as in JAX. Returns (B, qb, KV, G, d) in
+    qg's dtype."""
     b, qb, kv, g, d = qg.shape
     nj = kb.shape[0]
     scale = 1.0 / math.sqrt(d)
@@ -65,14 +69,19 @@ def _flash_one_qblock(qg: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
     m = torch.full((b, kv, g, qb), NEG_INF, device=qg.device)
     l = torch.zeros((b, kv, g, qb), device=qg.device)
     acc = torch.zeros((b, kv, g, qb, d), device=qg.device)
+    logits_bf16 = hints.get("attn_logits_bf16")
     for j in range(nj):
         s = torch.einsum("bqkgd,bskd->bkgqs", qg32, kb[j].float())
         if diag_mask and j == nj - 1:
             s = torch.where(tri, s, neg)
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        p = torch.exp(s - m_new[..., None])
+        if logits_bf16:
+            s = s.to(torch.bfloat16)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1).float())
+        p = torch.exp(s.float() - m_new[..., None])
+        if logits_bf16:
+            p = p.to(torch.bfloat16)
         alpha = torch.exp(m - m_new)
-        l = l * alpha + torch.sum(p, dim=-1)
+        l = l * alpha + torch.sum(p.float(), dim=-1)
         # p rounds to v's dtype, the product sums in float32 (JAX's
         # preferred_element_type)
         acc = acc * alpha[..., None] + torch.einsum(

@@ -162,8 +162,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: torch.device, dtype=torch.bfloat16) -> dict:
     """The decoder's contiguous self-KV (with its drop position) and the
     static cross-KV of ``frames_len(max_seq)`` frames."""
-    cache = transformer.init_cache(cfg, batch, max_seq, device, dtype,
-                                   num_layers=cfg.num_decoder_layers)
+    cache = transformer.init_kv_cache(cfg, batch, max_seq, device, dtype,
+                                      num_layers=cfg.num_decoder_layers)
     cache.update(_cross_cache(cfg, batch, max_seq, device, dtype))
     return cache
 
@@ -191,8 +191,8 @@ def prefill(params: dict, frames: torch.Tensor, tokens: torch.Tensor,
         raise ValueError(f"prompt of {s} tokens exceeds max_seq {max_seq}")
     logits, _, kv = forward(params, frames, tokens, cfg, remat="none",
                             return_cache=True)
-    cache = transformer.init_cache(cfg, b, max_seq, logits.device,
-                                   num_layers=cfg.num_decoder_layers)
+    cache = transformer.init_kv_cache(cfg, b, max_seq, logits.device,
+                                      num_layers=cfg.num_decoder_layers)
     cache = transformer.fill_cache(cache, kv, s)
     cache["cross_k"] = kv["cross_k"].to(torch.bfloat16)
     cache["cross_v"] = kv["cross_v"].to(torch.bfloat16)

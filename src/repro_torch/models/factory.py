@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import hints
 from repro_torch.models import (encdec, hybrid, layers, mamba_lm,
                                 transformer)
 
@@ -101,9 +102,11 @@ class ModelBundle:
                    dtype=torch.bfloat16) -> Cache:
         """Slot-resident cache for ``batch`` rows: the attention layers'
         (L, B, max_seq + 1, KV, hd) keys and values (the last position is
-        the drop position), the ssm family's recurrent state (conv states
-        in ``dtype``, the SSM state in float32), hybrid's both, enc-dec's
-        decoder KV and static cross-KV."""
+        the drop position; int8 with their scales for the dense, moe and
+        vlm families under the ``kv_cache_dtype="int8"`` hint), the ssm
+        family's recurrent state (conv states in ``dtype``, the SSM state
+        in float32), hybrid's both, enc-dec's decoder KV and static
+        cross-KV."""
         f = self.cfg.family
         if f == "ssm":
             return mamba_lm.init_cache(self.cfg, batch, self.device, dtype)
@@ -159,16 +162,20 @@ class ModelBundle:
     #: cache leaves that live in the shared page pool (no batch axis);
     #: slot-slicing helpers pass them through untouched
     PAGE_KEYS = ("k_pages", "v_pages")
-    #: contiguous KV leaves (L, B, max_seq + 1, KV, hd): the position past
+    #: contiguous KV leaves (L, B, max_seq + 1, KV, hd) and the int8
+    #: cache's scales (L, B, max_seq + 1, KV): the position past
     #: ``max_seq`` is the drop position, which slices leave out
-    DROP_POSITION_KEYS = ("k", "v")
+    DROP_POSITION_KEYS = ("k", "v", "k_scale", "v_scale")
 
     def cache_pages(self) -> bool:
         """Does this family page its cache? True for every family with
         growing attention KV (dense/moe/vlm transformers, hybrid attention
         sublayers, enc-dec decoder self-KV); the ssm family's O(1)
         recurrent state is slot-resident by nature — there is nothing to
-        page."""
+        page. Under the ``kv_cache_dtype="int8"`` hint no family pages:
+        int8 KV lives on the contiguous cache, as in JAX."""
+        if hints.get("kv_cache_dtype") == "int8":
+            return False
         return self.cfg.family != "ssm"
 
     def prefix_shareable(self) -> bool:

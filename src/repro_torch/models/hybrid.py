@@ -143,8 +143,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     """The attention sublayers' contiguous KV (one layer a period, with
     the drop position) and the SSD sublayers' state, ``(nb, n_ssm, B,
     ...)`` (the SSM state float32, conv states in ``dtype``)."""
-    cache = transformer.init_cache(cfg, batch, max_seq, device, dtype,
-                                   num_layers=num_blocks(cfg))
+    cache = transformer.init_kv_cache(cfg, batch, max_seq, device, dtype,
+                                      num_layers=num_blocks(cfg))
     cache["ssm"] = _ssm_states(cfg, batch, device, dtype)
     return cache
 
@@ -172,8 +172,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"prompt of {s} tokens exceeds max_seq {max_seq}")
     logits, _, kv = forward(params, tokens, cfg, remat="none",
                             return_cache=True)
-    cache = transformer.init_cache(cfg, b, max_seq, logits.device,
-                                   num_layers=num_blocks(cfg))
+    cache = transformer.init_kv_cache(cfg, b, max_seq, logits.device,
+                                      num_layers=num_blocks(cfg))
     cache = transformer.fill_cache(cache, kv, s)
     cache["ssm"] = kv["ssm"]
     return logits, cache

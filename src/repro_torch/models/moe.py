@@ -2,12 +2,12 @@
 
 Counterpart of :mod:`repro.models.moe`: ``init_moe``, ``capacity``, the
 scatter ``moe_ffn`` (with the serving engine's ``token_mask`` and the
-load-balance + router z-loss aux) and ``moe_dispatch``. The JAX
-``moe_dispatch`` takes ``moe_ffn_shardmap`` only under the
-``moe_impl="shardmap"`` hint on a device mesh; the port has neither hint
-nor mesh, so it always takes the scatter path (the hint's default). The
-expert products are ``torch.einsum``, as the JAX package computes them
-outside any Pallas kernel.
+load-balance + router z-loss aux) and ``moe_dispatch``. Under the
+``moe_impl="shardmap"`` hint the JAX ``moe_dispatch`` takes
+``moe_ffn_shardmap``, which off a device mesh is the scatter ``moe_ffn``;
+the port has no mesh yet, so it takes the scatter path under every value
+of the hint. The expert products are ``torch.einsum``, as the JAX
+package computes them outside any Pallas kernel.
 
 Three places where PyTorch would pick other tokens than JAX unless told:
 
@@ -128,7 +128,7 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def moe_dispatch(params: dict, x: torch.Tensor, cfg: ModelConfig,
                  token_mask: torch.Tensor | None = None):
-    """The JAX entry point's scatter path (``hints.moe_impl`` at its
-    default, ``"scatter"``); the shard_map variant is distributed work
-    that the port does not have."""
+    """The JAX entry point off a device mesh: the scatter ``moe_ffn``
+    under either ``moe_impl`` hint (JAX's ``moe_ffn_shardmap`` falls back
+    to it without a mesh; its shard_map body waits for the port's mesh)."""
     return moe_ffn(params, x, cfg, token_mask)

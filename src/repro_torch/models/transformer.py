@@ -7,13 +7,18 @@ whole-prompt ``prefill``; the contiguous-cache (``init_cache``,
 ``decode_step``, ``prefill_chunk``) and paged-pool (``init_paged_cache``,
 ``decode_step_paged``, ``prefill_chunk_paged``) serving steps, whose MoE
 FFNs (:mod:`repro_torch.models.moe`) take the step's ``active`` as their
-token mask. Not ported: the int8-KV hint, the distributed hints of
-``attention_block`` (``attn_impl="repeat_kv"``, ``attn_kv_replicated``)
-and ``_residual_constraint``. Parameters are a
-nested dict with the same leaf names and shapes as the JAX package — the
-einsum layouts ``wq (d, h, hd)``, ``wk``/``wv (d, kv, hd)``,
-``wo (h, hd, d)`` — with every per-layer leaf stacked on a leading layer
-axis, so one set of weights drives both packages
+token mask. The hints of :mod:`repro_torch.distributed.hints`, read at
+call time as JAX reads them at trace time: ``kv_cache_dtype="int8"``
+(:func:`init_cache` makes the contiguous cache int8 with per-(token,
+head) bf16 scales, and the steps quantize what they write and
+dequantize what attention reads), ``attn_impl="repeat_kv"``
+(:func:`attention_block`), and the two sharding constraints
+``attn_kv_replicated`` and ``residual_replicated``, which JAX drops off
+a device mesh and the port, without a mesh yet, accepts and ignores.
+Parameters are a nested dict with the same leaf names and shapes as the
+JAX package — the einsum layouts ``wq (d, h, hd)``, ``wk``/``wv (d, kv,
+hd)``, ``wo (h, hd, d)`` — with every per-layer leaf stacked on a leading
+layer axis, so one set of weights drives both packages
 (:mod:`repro_torch.models.convert`). The JAX ``lax.scan`` over layers is a
 Python loop over per-layer views.
 
@@ -34,6 +39,7 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import hints
 from repro_torch.kernels import ops
 from repro_torch.models import layers, moe
 
@@ -101,18 +107,38 @@ def unstack_layers(stacked: dict, n: int) -> list[dict]:
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device: torch.device, dtype=torch.bfloat16,
-               num_layers: int | None = None) -> dict:
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                  device: torch.device, dtype=torch.bfloat16,
+                  num_layers: int | None = None) -> dict:
     """Contiguous KV cache, ``(L, B, max_seq + 1, KV, hd)``: each row's
     slot of ``max_seq`` positions plus one, the drop position
     (:func:`cache_write_index`), which attention never reads. ``L`` is
     ``num_layers`` where given (the attention layers of a hybrid or the
-    decoder of an enc-dec model), else ``cfg.num_layers``."""
+    decoder of an enc-dec model, whose caches stay in ``dtype`` under the
+    int8 hint, as in JAX), else ``cfg.num_layers``."""
     shape = (num_layers or cfg.num_layers, batch, max_seq + 1,
              cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device: torch.device, dtype=torch.bfloat16) -> dict:
+    """The transformer family's contiguous cache: :func:`init_kv_cache`,
+    or under the ``kv_cache_dtype="int8"`` hint int8 keys and values with
+    ``k_scale``/``v_scale`` of ``(L, B, max_seq + 1, KV)`` bfloat16 — one
+    scale per token and head, the drop position included (JAX's leaves,
+    plus that position)."""
+    int8 = hints.get("kv_cache_dtype") == "int8"
+    cache = init_kv_cache(cfg, batch, max_seq, device,
+                          torch.int8 if int8 else dtype)
+    if int8:
+        shape = cache["k"].shape[:-1]
+        cache["k_scale"] = torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=device)
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -150,9 +176,25 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, causal: bool = True):
     """Full-sequence attention (``ops.attention_prefill``: the flash kernel
-    on CUDA). Returns (out, (k, v)) for cache capture."""
+    on CUDA). Returns (out, (k, v)) for cache capture.
+
+    Under ``attn_impl="repeat_kv"`` (GQA configs only) K and V are
+    repeated to the H query heads first, and the un-repeated (k, v) are
+    returned: the flash kernel runs at one query head a KV head on CUDA;
+    the CPU takes the JAX hint's path (``naive_attention`` below
+    ``ops.FLASH_MIN_SEQ`` positions, ``flash_attention_jnp`` from there).
+    ``attn_kv_replicated`` pins k/v to model-replicated on a device mesh;
+    off a mesh JAX drops the constraint, and the port, which has no mesh
+    yet, leaves the hint unread."""
     q, k, v = _project_qkv(p, x, cfg, positions)
-    o = ops.attention_prefill(q, k, v, causal=causal)
+    if (hints.get("attn_impl") == "repeat_kv"
+            and cfg.num_kv_heads < cfg.num_heads):
+        g = cfg.num_heads // cfg.num_kv_heads
+        o = ops.attention_prefill(q, k.repeat_interleave(g, dim=2),
+                                  v.repeat_interleave(g, dim=2),
+                                  causal=causal)
+    else:
+        o = ops.attention_prefill(q, k, v, causal=causal)
     out = torch.einsum("bshe,hed->bsd", o, p["wo"])
     return out, (k, v)
 
@@ -191,28 +233,70 @@ def paged_write_index(positions: torch.Tensor, block_tables: torch.Tensor,
 
 
 def _write(cache: torch.Tensor, new: torch.Tensor, index) -> None:
-    """Scatter the (B, C, KV, hd) new keys or values to ``index`` (from
-    :func:`cache_write_index` or :func:`paged_write_index`)."""
+    """Scatter the (B, C, KV, hd) new keys or values — or their (B, C, KV)
+    int8 scales — to ``index`` (from :func:`cache_write_index` or
+    :func:`paged_write_index`)."""
     cache[index] = new.reshape(-1, *new.shape[2:]).to(cache.dtype)
+
+
+def _quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """t: (..., hd) -> (int8 values, bf16 scale of each (...) vector): the
+    scale is max |t| / 127 in float32, at least 1e-8; the values
+    round(t / scale) (half to even, as ``jnp.round``) clipped to ±127."""
+    t32 = t.float()
+    scale = torch.clamp(t32.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(t32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _cache_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
+              k: torch.Tensor, v: torch.Tensor, write_index,
+              k_scale: torch.Tensor | None,
+              v_scale: torch.Tensor | None):
+    """Write the new (B, C, KV, hd) keys and values into one layer's
+    contiguous cache and return the (B, max_seq, KV, hd) tensors attention
+    reads. With scales (an int8 cache, (B, max_seq + 1, KV) each) they are
+    stored quantized, scales beside them, and read dequantized in float32:
+    the int8 value times its bf16 scale, a product float32 holds exactly.
+    JAX writes ``int8 -> bf16 * bf16 scale``, but XLA keeps that product
+    unrounded where attention reads it back in float32 (its default
+    ``xla_allow_excess_precision``), so the exact product is what the
+    JAX package computes on its jnp path; rounding it to bf16 here would
+    move ~0.2% of the next layer's int8 entries by one unit."""
+    s = k_cache.shape[1] - 1
+    if k_scale is None:
+        _write(k_cache, k, write_index)
+        _write(v_cache, v, write_index)
+        return k_cache[:, :s], v_cache[:, :s]
+    full = []
+    for cache, scales, t in ((k_cache, k_scale, k), (v_cache, v_scale, v)):
+        q, scale = _quantize_kv(t)
+        _write(cache, q, write_index)
+        _write(scales, scale, write_index)
+        full.append(cache[:, :s].float() * scales[:, :s, :, None].float())
+    return full[0], full[1]
 
 
 def attention_decode_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
                            k_cache: torch.Tensor, v_cache: torch.Tensor,
-                           lengths: torch.Tensor, write_index):
+                           lengths: torch.Tensor, write_index,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None):
     """One-token attention against the contiguous cache.
 
-    x: (B,1,D); caches: (B, max_seq + 1, KV, hd) — written in place. The
-    new k/v lands at position ``lengths``; attention reads the first
-    ``max_seq`` positions over ``lengths + 1`` (``ops.attention_decode``,
-    q rotated there). ``write_index``: this dispatch's
-    :func:`cache_write_index`, the same for every layer; it holds the JAX
-    ``active`` mask (inactive rows write only their drop position, and
-    their outputs are garbage the caller ignores)."""
+    x: (B,1,D); caches: (B, max_seq + 1, KV, hd) — written in place; int8
+    with (B, max_seq + 1, KV) ``k_scale``/``v_scale`` under the int8
+    hint (:func:`init_cache`). The new k/v lands at
+    position ``lengths``; attention reads the first ``max_seq`` positions
+    over ``lengths + 1`` (``ops.attention_decode``, q rotated there),
+    dequantized from an int8 cache (:func:`_cache_kv`). ``write_index``:
+    this dispatch's :func:`cache_write_index`, the same for every layer;
+    it holds the JAX ``active`` mask (inactive rows write only their drop
+    position, and their outputs are garbage the caller ignores)."""
     q, k, v = _project_qkv(p, x, cfg, lengths[:, None], rope_q=False)
-    _write(k_cache, k, write_index)
-    _write(v_cache, v, write_index)
-    s = k_cache.shape[1] - 1
-    o = ops.attention_decode(q, k_cache[:, :s], v_cache[:, :s], lengths + 1,
+    k_full, v_full = _cache_kv(k_cache, v_cache, k, v, write_index, k_scale,
+                               v_scale)
+    o = ops.attention_decode(q, k_full, v_full, lengths + 1,
                              rope_theta=cfg.rope_theta)
     return torch.einsum("bshe,hed->bsd", o, p["wo"])
 
@@ -231,21 +315,22 @@ def _chunk_attend(p: dict, q: torch.Tensor, k_full: torch.Tensor,
 def attention_prefill_chunk_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
                                   k_cache: torch.Tensor,
                                   v_cache: torch.Tensor,
-                                  start_len: torch.Tensor, write_index):
+                                  start_len: torch.Tensor, write_index,
+                                  k_scale: torch.Tensor | None = None,
+                                  v_scale: torch.Tensor | None = None):
     """Chunked-prefill attention against the contiguous cache: the C new
-    tokens' k/v are written at ``start_len .. start_len+C-1`` and attended
-    causally over the first ``max_seq`` positions. ``write_index`` (this
-    dispatch's :func:`cache_write_index`) holds the JAX ``active`` and
-    ``valid`` masks: inactive rows and tail pads write only their drop
-    position, and their outputs are garbage."""
+    tokens' k/v are written at ``start_len .. start_len+C-1`` (quantized,
+    with ``k_scale``/``v_scale``, in an int8 cache) and attended causally
+    over the first ``max_seq`` positions. ``write_index`` (this dispatch's
+    :func:`cache_write_index`) holds the JAX ``active`` and ``valid``
+    masks: inactive rows and tail pads write only their drop position, and
+    their outputs are garbage."""
     c = x.shape[1]
     positions = start_len[:, None] + torch.arange(c, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions, rope_q=False)
-    _write(k_cache, k, write_index)
-    _write(v_cache, v, write_index)
-    s = k_cache.shape[1] - 1
-    return _chunk_attend(p, q, k_cache[:, :s], v_cache[:, :s], start_len, cfg,
-                         x.dtype)
+    k_full, v_full = _cache_kv(k_cache, v_cache, k, v, write_index, k_scale,
+                               v_scale)
+    return _chunk_attend(p, q, k_full, v_full, start_len, cfg, x.dtype)
 
 
 def attention_decode_block_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -411,7 +496,7 @@ def forward(params: dict, tokens: torch.Tensor | None, cfg: ModelConfig, *,
 
 def fill_cache(cache: dict, kv: dict, s: int) -> dict:
     """Write a whole prompt's (L, B, S, KV, hd) keys/values into the first
-    ``s`` positions of a contiguous cache from :func:`init_cache`."""
+    ``s`` positions of a contiguous cache from :func:`init_kv_cache`."""
     cache["k"][:, :, :s] = kv["k"]
     cache["v"][:, :, :s] = kv["v"]
     return cache
@@ -421,7 +506,8 @@ def prefill(params: dict, tokens: torch.Tensor | None, cfg: ModelConfig,
             max_seq: int, embeds: torch.Tensor | None = None):
     """Run the whole prompt (``tokens`` (B, S), or ``embeds`` (B, S, D)
     for the vlm stub); return (logits (B, S, V), cache) with the cache in
-    :func:`init_cache`'s layout — (L, B, max_seq + 1, KV, hd) bfloat16,
+    :func:`init_kv_cache`'s layout — (L, B, max_seq + 1, KV, hd) bfloat16
+    under every hint, as JAX's,
     the prompt's keys/values in the first S positions, zeros after them
     and in the drop position — ready for :func:`decode_step`. JAX pads its
     cache to ``max_seq``; a prompt longer than ``max_seq`` is refused here
@@ -431,8 +517,16 @@ def prefill(params: dict, tokens: torch.Tensor | None, cfg: ModelConfig,
         raise ValueError(f"prompt of {s} tokens exceeds max_seq {max_seq}")
     logits, _, kv = forward(params, tokens, cfg, remat="none",
                             embeds=embeds, return_cache=True)
-    cache = init_cache(cfg, b, max_seq, logits.device)
+    cache = init_kv_cache(cfg, b, max_seq, logits.device)
     return logits, fill_cache(cache, kv, s)
+
+
+def _scales(cache: dict, i: int) -> tuple:
+    """Layer ``i``'s (k_scale, v_scale) of an int8 cache, else (None,
+    None): the cache's leaves, not the hint, decide, as in JAX."""
+    if "k_scale" not in cache:
+        return None, None
+    return cache["k_scale"][i], cache["v_scale"][i]
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -450,7 +544,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     logits = _run_layers(params, x, cfg, lambda i, p, h:
                          attention_decode_block(p, h, cfg, cache["k"][i],
                                                 cache["v"][i], lengths,
-                                                index), active)
+                                                index, *_scales(cache, i)),
+                         active)
     return logits[:, 0], cache
 
 
@@ -473,7 +568,7 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
     logits = _run_layers(params, x, cfg, lambda i, p, h:
                          attention_prefill_chunk_block(
                              p, h, cfg, cache["k"][i], cache["v"][i],
-                             start_len, index), active)
+                             start_len, index, *_scales(cache, i)), active)
     return logits, cache
 
 

@@ -2,7 +2,9 @@
 
 Port of :mod:`repro.serving.engine` on both of its caches — the paged KV
 pool (the dense family's default) and the contiguous slot-resident cache
-(``paged=False``, and the ssm family's recurrent state): the same slot
+(``paged=False``, the ssm family's recurrent state, and every family under
+the ``kv_cache_dtype="int8"`` hint, read when the engine is built: the
+transformer families' int8 KV with its scales): the same slot
 scheduling through the pluggable
 :class:`~repro_torch.bench.policy.SchedulingPolicy` objects (``fcfs``,
 ``chunked``, ``mixed`` step budgets with multi-slot batched prefill,
@@ -141,7 +143,7 @@ class InferenceEngine:
         elif paged and not model.cache_pages():
             raise ValueError(
                 f"family {self.cfg.family!r} cannot page its cache "
-                "(no growing KV)")
+                "(no growing KV, or int8 KV hint active)")
         self.paged = paged
         self.params = None
         self.allocator: Optional[BlockAllocator] = None

@@ -20,14 +20,17 @@ COPIES = sorted([
     "bench/__init__.py", "bench/arrival.py", "bench/conversation.py",
     "bench/engine_runner.py", "bench/policy.py", "bench/scenario.py",
     "bench/seeding.py",
-    "configs/base.py", "configs/chameleon_34b.py",
+    "configs/base.py", "configs/chameleon_34b.py", "configs/shapes.py",
     "configs/jamba_v0_1_52b.py", "configs/kimi_k2_1t_a32b.py",
     "configs/mamba2_1_3b.py", "configs/moonshot_v1_16b_a3b.py",
     "configs/qwen3_14b.py", "configs/registry.py",
     "configs/seamless_m4t_large_v2.py", "configs/stablelm_12b.py",
     "configs/stablelm_3b.py", "configs/tinyllama_1_1b.py",
     "core/__init__.py", "core/apps.py", "core/costs.py", "core/dag.py",
-    "core/simulator.py", "core/slo.py", "core/workflow.py",
+    "core/orchestrator.py", "core/report.py", "core/scheduler.py",
+    "core/sharing.py", "core/simulator.py", "core/slo.py",
+    "core/workflow.py",
+    "distributed/autotune.py", "distributed/hints.py",
     "kernels/autotune.py",
     "resilience/__init__.py", "resilience/degradation.py",
     "resilience/faults.py",
