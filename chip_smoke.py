@@ -68,6 +68,11 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                 and 63), and the reduced configs' (S 24, 16 and 10, 4 heads
                 of 16 over 2 or 4 KV heads, causal or not); each called
                 twice, bitwise equal;
+              * the mesh phase's geometry: the contiguous decode over a
+                float32 cache of 2,048 positions (4 rows, lengths 2, 301,
+                1,025 and 2,048), and flash forward and backward at 1 x
+                2048, 32 heads of 64 over 32 KV heads (repeat_kv) and
+                over 4 (MESH_FLASH, f32);
               serving attention in q float32 with caches bfloat16 (the
               serving dtypes) and float32. Tolerance: 2e-5 absolute + 2e-5
               relative (both sides compute in float32 on identical inputs;
@@ -192,6 +197,28 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               then, cut to 2 layers, forward logits and loss_fn gradients
               on the card against the CPU path, and a checkpoint written
               on the card, restored on the CPU, whose next step agrees.
+   mesh     — NCCL with world size 1 and a 1 x 1 ("data", "model") CUDA
+              mesh (launch.mesh.make_mesh); tinyllama-1.1b at full width
+              cut to 2 layers, params, ZeRO-1 AdamW state, batch and cache
+              placed as DTensors by the port's specs
+              (distributed.sharding): a train step under
+              best_hints(cfg, "train") (repeat_kv, remat dots; 1 x 2048),
+              a whole-prompt prefill (1 x 2048) and a decode step under
+              best_hints(cfg, "decode") (int8 KV; 4 rows on a random int8
+              cache of 2,049 positions, the first 2,048 read), each
+              against the same step unsharded on the card from the same
+              inputs: loss, updated parameters, logits and the written
+              cache within 1e-6 (the run says whether bitwise); launches
+              exact (flash 4 and its backward 2, flash 2, decode 2), and
+              every launch at a geometry phase 3 checked (mesh_geometry).
+              Then the port's dry run of
+              three production cells (tinyllama-1.1b x train_4k on
+              (16, 16); tinyllama-1.1b x decode_32k and moonshot-v1-16b-a3b
+              x prefill_32k under --autotune) in a subprocess on the
+              host's CPU (256 fake ranks, nothing allocated), started
+              after the last timed phase: each cell ok, its dominant
+              term, FLOPs, collective and argument bytes and wall time
+              printed; its seconds are the simulated tpu-v5e's.
 6. report   — a JSON line of per-kernel numbers (launches summed over the
               measured runs of every path), the nvidia-smi line, and last
               a JSON line naming the device.
@@ -991,6 +1018,8 @@ def kernel_phase(torch, F, K, ref):
     rmsnorm_kernel_phase(torch, F, K, ref, gen, dev, out)
     for name, err in family_kernel_cases(torch, F, K, ref, gen,
                                          dev).items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    for name, err in mesh_kernel_cases(torch, K, ref, gen, dev).items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     for name, r in out.items():
         lib = ("—" if r["library_ms"] is None
@@ -2756,6 +2785,352 @@ def scenario_phase(torch, K):
     torch.cuda.empty_cache()
     return launches
 
+# ------------------------------------------------------------ mesh phase
+#: tinyllama-1.1b at full width cut to this many layers for the sharded
+#: steps; the train and prefill batch (B, S) (S >= 2048 takes the flash
+#: kernel on the CPU path too); the decode batch, its int8 cache's slot
+#: and each row's cached length
+MESH_LAYERS, MESH_B, MESH_S = 2, 1, 2048
+MESH_DECODE_LENGTHS = (1, 300, 1024, 2047)
+#: kernel #6 at the mesh phase's steps (tinyllama's 32 heads of 64, f32):
+#: the train step's under repeat_kv (one query head a KV head) and the
+#: prefill's (32 over 4 KV heads); forward and backward of each are held
+#: against their plain versions in phase 3 (mesh_kernel_cases), and
+#: mesh_geometry fails on a launch at any other
+MESH_FLASH = [FlashShape("mesh train, repeat_kv", MESH_B, MESH_S, True, H,
+                         H, D),
+              FlashShape("mesh prefill", MESH_B, MESH_S, True, H, KV, D)]
+#: kernel #3 at the mesh phase's decode: its B rows read the int8 cache's
+#: first MESH_S positions dequantized to float32, over each row's cached
+#: length + 1 (the new token's position included)
+MESH_CONTIGUOUS = PagedShape("mesh decode", H, KV, D, C, MESH_S, 1)
+MESH_DECODE_READ = [n + 1 for n in MESH_DECODE_LENGTHS]
+#: the port's dry run at full width: (arch, shape, --autotune)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", False),
+                ("tinyllama-1.1b", "decode_32k", True),
+                ("moonshot-v1-16b-a3b", "prefill_32k", True))
+#: the dry run's documents (JSONL), read and removed by finish_dryrun
+DRYRUN_OUT = ROOT / "chip_smoke_dryrun.jsonl"
+DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.launch import dryrun
+for arch, shape, autotune in json.loads(sys.argv[2]):
+    dryrun.main(["--arch", arch, "--shape", shape, "--out", sys.argv[1]]
+                + (["--autotune"] if autotune else []))
+"""
+_DRYRUN: list = []
+
+
+def start_dryrun():
+    """The dry run's cells in a process of their own, on the host's CPU
+    (a process has one default process group: the fake one of 256 ranks
+    cannot share one with the mesh phase's NCCL group). It runs beside
+    the training card-vs-CPU and mesh phases, which time nothing, so no
+    reported time shares the host with it; :func:`finish_dryrun` collects
+    it."""
+    import atexit
+    DRYRUN_OUT.unlink(missing_ok=True)      # main() would resume from it
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_SCRIPT, str(DRYRUN_OUT),
+         json.dumps(DRYRUN_CELLS)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
+    _DRYRUN[:] = [proc, time.monotonic()]
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    log(f"dry run started (pid {proc.pid}): {DRYRUN_CELLS}")
+
+
+def finish_dryrun() -> None:
+    """Wait for the dry run; every cell must be ``ok``. Prints each cell's
+    roofline terms (the seconds are the simulated tpu-v5e's, not the
+    card's) and the process's wall time."""
+    proc, t0 = _DRYRUN
+    try:
+        out = proc.communicate(timeout=900)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail("dry run: no end within 900 s")
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        fail(f"dry run exited {proc.returncode}:\n{out[-4000:]}")
+    docs = [json.loads(line) for line in DRYRUN_OUT.read_text().splitlines()]
+    DRYRUN_OUT.unlink()
+    if len(docs) != len(DRYRUN_CELLS) or any(d["status"] != "ok"
+                                             for d in docs):
+        fail(f"dry run: {[(d['arch'], d['shape'], d['status']) for d in docs]}")
+    for d in docs:
+        coll = d["collective_detail"]
+        log(f"dry run {d['arch']} x {d['shape']} on {d['mesh']}"
+            f"{' (' + d['hints'] + ')' if 'hints' in d else ''}: status ok, "
+            f"dominant {d['dominant']}, hlo_flops {d['hlo_flops']:.6g}, "
+            f"collective_bytes {d['collective_bytes']:.6g} "
+            f"({coll['total_count']} collectives a device), argument bytes "
+            f"a device {d['memory_analysis']['argument_bytes']}, wall "
+            f"{d['compile_s']:.1f} s; simulated {d['notes'].split()[-1]} "
+            f"step {d['step_time_s']:.6g} s")
+    log(f"dry run: {len(docs)} cells in {wall:.1f} s of wall time (run "
+        f"beside the training card-vs-CPU and mesh phases)")
+
+
+def mesh_kernel_cases(torch, K, ref, gen, dev) -> dict:
+    """Kernel #3 at MESH_CONTIGUOUS (a float32 cache, the rows read over
+    MESH_DECODE_READ) and kernel #6 at every MESH_FLASH shape, forward
+    (called twice, bitwise equal) and backward, each against its plain
+    version: the geometries the mesh phase runs them at. Returns the max
+    abs error of each kernel."""
+    if len(MESH_DECODE_READ) != B:
+        fail(f"MESH_DECODE_LENGTHS holds {len(MESH_DECODE_READ)} rows, "
+             f"the decode check {B}")
+    err, _ = contiguous_decode_case(torch, K, ref, gen, dev,
+                                    MESH_CONTIGUOUS, MESH_DECODE_READ,
+                                    torch.float32)
+    errs = {"decode_attention": err}
+    log(f"decode_attention at the mesh decode (B {B}, H {H}, KV {KV}, d "
+        f"{D}, {MESH_CONTIGUOUS.cap} positions, f32 cache, lengths "
+        f"{MESH_DECODE_READ}): max abs err {err:.3e} (tol {ATOL} + "
+        f"{RTOL}*|plain|), repeats bitwise equal")
+    fwd, bwd = K["flash_attention"], K["flash_attention_bwd"]
+    for fs in MESH_FLASH:
+        err, (q, k, v) = flash_case(torch, K, ref, gen, dev, fs)
+        o, lse = fwd(q, k, v, causal=fs.causal, return_lse=True)
+        do = torch.randn(o.shape, generator=gen, device=dev)
+        got = bwd(q, k, v, o, lse, do, causal=fs.causal)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, fs.causal)
+        torch.cuda.synchronize()
+        what = (f"flash_attention_bwd[{fs.label}: B={fs.b} S={fs.s} H={fs.h}"
+                f" KV={fs.kv} d={fs.d}]")
+        berr = [check_close(f"{what} {n}", g, w)
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+        errs["flash_attention"] = max(errs.get("flash_attention", 0.0), err)
+        errs["flash_attention_bwd"] = max(
+            errs.get("flash_attention_bwd", 0.0), *berr)
+        log(f"flash_attention at {fs.label} (B {fs.b}, S {fs.s}, H {fs.h}, "
+            f"KV {fs.kv}, d {fs.d}, causal, f32): max abs err {err:.3e}, "
+            f"repeats bitwise equal; backward dq/dk/dv "
+            f"{'/'.join(f'{e:.3e}' for e in berr)} (tol {ATOL} + "
+            f"{RTOL}*|plain|)")
+        del q, k, v, o, lse, do, got, want
+        torch.cuda.empty_cache()
+    return errs
+
+
+@contextlib.contextmanager
+def mesh_geometry(torch, what):
+    """Records the geometry of every launch of kernel #6 (the forward
+    through ops and through its autograd wrapper, the backward through the
+    wrapper) and of kernel #3 inside, and fails on one that
+    mesh_kernel_cases did not check: flash at a MESH_FLASH shape in
+    float32, decode at MESH_CONTIGUOUS over MESH_DECODE_READ in float32.
+    The kernels' own functions stay as they are (each counts its launches
+    under its own name); ops' bindings and the wrapper are swapped."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    saved = {name: getattr(ops, name) for name in
+             ("flash_attention", "decode_attention", "FlashAttention")}
+    base, seen = saved["FlashAttention"], set()
+
+    def flash_key(kind, q, k, causal):
+        return (kind, q.shape[0], q.shape[2], k.shape[2], causal,
+                q.shape[1], k.shape[1], q.shape[3], q.dtype, k.dtype)
+
+    def flash(q, k, v, *, causal=True, **kwargs):
+        seen.add(flash_key("flash", q, k, causal))
+        return saved["flash_attention"](q, k, v, causal=causal, **kwargs)
+
+    def decode(q, k, v, lengths, **kwargs):
+        seen.add(("decode", q.shape[0], q.shape[1], k.shape[1], k.shape[2],
+                  q.shape[2], q.dtype, k.dtype, tuple(lengths.tolist())))
+        return saved["decode_attention"](q, k, v, lengths, **kwargs)
+
+    class Recorded(base):
+        @staticmethod
+        def forward(ctx, q, k, v, causal):
+            seen.add(flash_key("flash", q, k, causal))
+            return base.forward(ctx, q, k, v, causal)
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            seen.add(flash_key("flash backward", q, k, ctx.causal))
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                             causal=ctx.causal)
+            return dq, dk, dv, None
+
+    ops.flash_attention, ops.decode_attention = flash, decode
+    ops.FlashAttention = Recorded
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+    f32 = torch.float32
+    checked = {(kind, f.b, f.s, f.s, f.causal, f.h, f.kv, f.d, f32, f32)
+               for f in MESH_FLASH for kind in ("flash", "flash backward")}
+    m = MESH_CONTIGUOUS
+    checked.add(("decode", B, m.h, m.kv, m.cap, m.d, f32, f32,
+                 tuple(MESH_DECODE_READ)))
+    for key in sorted(seen - checked, key=str):
+        fail(f"{what}: a kernel ran at {key}, a geometry phase 3 did not "
+             "check")
+    log(f"{what}: {len(seen)} kernel geometries, each checked in phase 3: "
+        f"{sorted(seen, key=str)}")
+
+
+def _max_diff(torch, got, want) -> float:
+    from torch.distributed.tensor import DTensor
+    got = got.full_tensor() if isinstance(got, DTensor) else got
+    return float((got.float() - want.float()).abs().max())
+
+
+def mesh_steps(torch, mesh, model, params, dev, K=None) -> dict:
+    """One train step under best_hints(cfg, "train"), one whole-prompt
+    prefill and one int8-KV decode step under best_hints(cfg, "decode"),
+    each with params, optimizer state, batch and cache placed on ``mesh``
+    by the port's sharding rules, and again unsharded on the same device
+    from the same inputs: loss, updated parameters and logits must agree
+    within 1e-6 (the same kernels on the same shards: a 1 x 1 mesh should
+    not even reorder a sum; the run prints whether they are bitwise
+    equal). ``K``: the kernels' wrappers, whose launches are counted
+    exactly on the sharded runs only. Returns the launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import hints, sharding
+    from repro_torch.distributed.autotune import best_hints
+    from repro_torch.launch import dryrun
+    from repro_torch.training.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.training.train_step import (make_prefill_step,
+                                                 make_serve_step,
+                                                 make_train_step)
+    cfg, n = model.cfg, model.cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (MESH_B, MESH_S),
+                           generator=gen, device=dev, dtype=torch.int32)
+    P = sharding.place(params, sharding.param_pspecs(cfg, mesh, params),
+                       mesh)
+    launches: dict = {}
+
+    def counted(what, want, run):
+        if K is not None:
+            zero_counts(K)
+        out = run()
+        if K is not None:
+            torch.cuda.synchronize()
+            add_counts(launches, check_launches(K, what, want))
+        return out
+
+    def agree(what, pairs):
+        diffs = {k: _max_diff(torch, g, w) for k, (g, w) in pairs.items()}
+        worst = max(diffs.values())
+        if not math.isfinite(worst) or worst > 1e-6:
+            fail(f"{what}: sharded vs unsharded {diffs}")
+        log(f"{what}: sharded == unsharded "
+            f"{'bitwise' if worst == 0 else f'within {worst:.3e}'} "
+            f"({len(diffs)} tensors)")
+
+    # ---- train
+    hint, remat = best_hints(cfg, "train")
+    shape = ShapeConfig("mesh", MESH_S, MESH_B, "train")
+    opt = adamw_init(params)
+    O = sharding.place(opt, dryrun._opt_pspecs(cfg, mesh, params, opt),
+                       mesh)
+    batch = sharding.place({"tokens": tokens},
+                           sharding.batch_pspecs(cfg, shape, mesh), mesh)
+    _, step = make_train_step(model, OptimizerConfig(lr=1e-3,
+                                                     warmup_steps=10),
+                              remat=remat)
+    with hints.hints(**hint):
+        new_p, _, m = counted("mesh train step", {
+            "flash_attention": 2 * n, "flash_attention_bwd": n},
+            lambda: step(P, O, batch))
+        ref_p, _, ref_m = step(params, opt, {"tokens": tokens})
+    pairs = {"loss": (m["loss"], ref_m["loss"])}
+    pairs.update({k: (v, dict(sharding._walk(ref_p))[k])
+                  for k, v in sharding._walk(new_p)})
+    agree(f"train step under {hint}, remat {remat} ({MESH_B} x {MESH_S})",
+          pairs)
+    del new_p, ref_p, O, opt
+    # ---- whole-prompt prefill
+    prefill = make_prefill_step(model, max_seq=MESH_S)
+    logits, _ = counted("mesh prefill", {"flash_attention": n},
+                        lambda: prefill(P, batch))
+    ref_logits, _ = prefill(params, {"tokens": tokens})
+    agree(f"prefill ({MESH_B} x {MESH_S})", {"logits": (logits,
+                                                       ref_logits)})
+    del logits, ref_logits
+    # ---- decode on an int8 cache
+    hint, _ = best_hints(cfg, "decode")
+    b = len(MESH_DECODE_LENGTHS)
+    with hints.hints(**hint):
+        cache = model.init_cache(b, MESH_S)
+    if cache["k"].dtype != torch.int8:
+        fail(f"best_hints(decode) = {hint}: the cache is {cache['k'].dtype}")
+    for k, t in cache.items():
+        t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev)
+                if t.dtype == torch.int8 else
+                0.001 + 0.02 * torch.rand(t.shape, generator=gen,
+                                          device=dev))
+    ref_cache = {k: t.clone() for k, t in cache.items()}
+    dshape = ShapeConfig("mesh", MESH_S, b, "decode")
+    C = sharding.place(cache, sharding.cache_pspecs(cfg, dshape, mesh,
+                                                    cache), mesh)
+    dec = sharding.place(
+        {"tokens": tokens[:1, :b].reshape(b, 1),
+         "lengths": torch.tensor(MESH_DECODE_LENGTHS, dtype=torch.int32,
+                                 device=dev)},
+        sharding.batch_pspecs(cfg, dshape, mesh), mesh)
+    serve = make_serve_step(model)
+    with hints.hints(**hint):
+        logits, C = counted("mesh decode step", {"decode_attention": n},
+                            lambda: serve(P, C, dec["tokens"],
+                                          dec["lengths"]))
+        ref_logits, ref_cache = serve(params, ref_cache,
+                                      tokens[:1, :b].reshape(b, 1),
+                                      torch.tensor(MESH_DECODE_LENGTHS,
+                                                   dtype=torch.int32,
+                                                   device=dev))
+    pairs = {"logits": (logits, ref_logits)}
+    pairs.update({k: (C[k], ref_cache[k]) for k in cache})
+    agree(f"int8 decode step under {hint} ({b} rows, lengths "
+          f"{list(MESH_DECODE_LENGTHS)})", pairs)
+    return launches
+
+
+def mesh_phase(torch, K) -> dict:
+    """NCCL with world size 1 (this process), a 1 x 1 ("data", "model")
+    CUDA mesh, tinyllama-1.1b at full width cut to MESH_LAYERS layers:
+    :func:`mesh_steps` on it; then the dry run's cells. Returns the
+    launches."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import make_mesh, mesh_name
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        if mesh.device_type != "cuda":
+            fail(f"mesh on {mesh.device_type}")
+        model, params = tinyllama(torch, layers=MESH_LAYERS)
+        log(f"mesh {mesh_name(mesh)} on {mesh.device_type}, NCCL world "
+            f"size 1: tinyllama-1.1b, {MESH_LAYERS} of 22 layers")
+        # the plain tensors a step makes (RoPE tables, masks, the
+        # optimizer's step scalars) join the DTensor ops as replicated
+        with implicit_replication(), mesh_geometry(torch, "mesh phase"):
+            launches = mesh_steps(torch, mesh, model, params,
+                                  torch.device("cuda"), K)
+        del model, params
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    finish_dryrun()
+    return launches
+
+
 # --------------------------------------------------------------------- main
 KERNELS = {
     "paged_decode_attention": dict(
@@ -2859,7 +3234,9 @@ def main() -> None:
             ("prefill", prefill_phase, (torch, K)),
             ("training", train_phase, (torch, K))):
         add_counts(launches, timed(name, phase, *args))
+    start_dryrun()     # on the host's CPU, after every phase that is timed
     timed("training card vs CPU", training_card_vs_cpu_phase, torch)
+    add_counts(launches, timed("mesh", mesh_phase, torch, K))
     log(f"seconds a phase: {seconds}")
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
 

@@ -1,3 +1,3 @@
-"""The distributed layer's JAX-free modules: the hints and the per-cell
-hint table (copies). Sharding, pipelining and the shard_map MoE wait for
-the port's device mesh."""
+"""The distributed layer: the hints and the per-cell hint table (copies)
+and the sharding rules with their DTensor placements. Pipelining waits
+for its own slice."""

@@ -17,11 +17,23 @@ first operand alone — there is no backend switch:
 
 Model-facing layouts are (B, S, H, d); the kernels are head-major — the
 wrappers here transpose at the boundary (views, not copies).
+
+On a device mesh the operands are DTensors. Attention is local to a row
+and a head, the SSD chunk to a chunk and a head, RMSNorm to a row, so each
+entry unwraps the shards (batch and heads sharded as the specs left them;
+a query whose heads the KV heads cannot follow is gathered over them
+first), runs itself on them — the kernel on CUDA shards, with no fallback
+to the plain version — and wraps the result with the placements it came
+with. A cache sharded along its sequence (flash-decode sequence
+parallelism) cannot be read a shard at a time: on the CPU the plain path
+then runs on the DTensors as they are; on CUDA it raises.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed import mesh_ops
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention)
@@ -40,6 +52,50 @@ from repro_torch.models import attention
 FLASH_MIN_SEQ = 2048
 
 
+def _local_heads(fn, *operands, **kw):
+    """``fn(*shards, **kw)`` on each rank's shards of DTensor operands
+    laid out as the model's, given in ``fn``'s order as (tensor, kind):
+    ``"q"`` (B, S, H, d) and ``"kv"`` (B, S, KV, d) sharded on batch (dim
+    0) and heads (dim 2), ``"rows"`` (B, ...) on batch, ``"pool"`` (P,
+    page, KV, d) on heads only. Returns the output as a DTensor in q's
+    layout, or None where a cache is sharded along its sequence."""
+    q = operands[0][0]
+    mesh = q.device_mesh
+    pools = [t for t, kind in operands if kind == "pool"]
+    heads_of = [t for t, kind in operands if kind in ("kv", "pool")]
+    pl = {"q": [], "kv": [], "rows": [], "pool": []}
+    for i, p in enumerate(q.placements):
+        if any(kind == "kv" and isinstance(t, DTensor)
+               and isinstance(t.placements[i], Shard)
+               and t.placements[i].dim == 1 for t, kind in operands):
+            return None
+        batch = isinstance(p, Shard) and p.dim == 0 and not pools
+        heads = (isinstance(p, Shard) and p.dim == 2
+                 and all(t.shape[2] % mesh.size(i) == 0 for t in heads_of))
+        pl["q"].append(Shard(0) if batch else Shard(2) if heads
+                       else Replicate())
+        pl["kv"].append(pl["q"][-1])
+        pl["rows"].append(Shard(0) if batch else Replicate())
+        pl["pool"].append(Shard(2) if heads else Replicate())
+
+    def local(t, kind):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, pl[kind]).to_local()
+
+    out = fn(*(local(t, kind) for t, kind in operands), **kw)
+    return DTensor.from_local(out, mesh, pl["q"], run_check=False,
+                              shape=q.shape,
+                              stride=mesh_ops.stride_like(out, q.shape))
+
+
+def _no_local(name: str):
+    raise NotImplementedError(
+        f"ops.{name}: a CUDA cache sharded along its sequence has no "
+        "kernel (the kernels read whole rows)")
+
+
 def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True) -> torch.Tensor:
     """Full-sequence attention. q: (B, S, H, d) (already rotated); k/v:
@@ -50,6 +106,13 @@ def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     gradient) it goes through :class:`FlashAttention`, whose backward is
     the backward kernel. On the CPU: ``naive_attention`` below
     ``FLASH_MIN_SEQ`` positions and ``flash_attention_jnp`` at or above."""
+    if isinstance(q, DTensor):
+        o = _local_heads(attention_prefill, (q, "q"), (k, "kv"), (v, "kv"),
+                         causal=causal)
+        if o is not None:
+            return o
+        if q.device.type != "cpu":
+            _no_local("attention_prefill")
     if q.device.type == "cpu":
         if q.shape[1] >= FLASH_MIN_SEQ:
             return attention.flash_attention_jnp(q, k, v, causal=causal)
@@ -69,6 +132,17 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
     """x: (..., D); w: (D,) float32 -> x's shape and dtype. The kernel on
     CUDA over the flattened rows; ``ref.rmsnorm_ref`` on the CPU."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        pl = [p if isinstance(p, Shard) and p.dim < x.ndim - 1
+              else Replicate() for p in x.placements]
+        rep = [Replicate()] * mesh.ndim
+        w_l = (w.redistribute(mesh, rep).to_local()
+               if isinstance(w, DTensor) else w)
+        o = fused_rmsnorm(x.redistribute(mesh, pl).to_local(), w_l, eps)
+        return DTensor.from_local(o, mesh, pl, run_check=False,
+                                  shape=x.shape,
+                                  stride=mesh_ops.stride_like(o, x.shape))
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
     shape = x.shape
@@ -86,6 +160,14 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     Row b attends its first ``lengths[b]`` positions; RoPE of q at position
     ``lengths - 1`` is fused into the attention. The kernel reads the
     cache through a head-major view of it, in place."""
+    if isinstance(q, DTensor):
+        o = _local_heads(attention_decode, (q, "q"), (k_cache, "kv"),
+                         (v_cache, "kv"), (lengths, "rows"),
+                         rope_theta=rope_theta)
+        if o is not None:
+            return o
+        if q.device.type != "cpu":
+            _no_local("attention_decode")
     if q.device.type == "cpu":
         return attention.decode_attention(q, k_cache, v_cache, lengths,
                                           rope_theta=rope_theta)
@@ -105,6 +187,14 @@ def attention_prefill_chunk(q: torch.Tensor, k_cache: torch.Tensor,
     Chunk token j attends positions ``<= start_len + j`` and is rotated
     there (fused RoPE). The CPU path returns float32, like the JAX jnp
     lowering; the kernel returns q's dtype."""
+    if isinstance(q, DTensor):
+        o = _local_heads(attention_prefill_chunk, (q, "q"), (k_cache, "kv"),
+                         (v_cache, "kv"), (start_len, "rows"),
+                         rope_theta=rope_theta)
+        if o is not None:
+            return o
+        if q.device.type != "cpu":
+            _no_local("attention_prefill_chunk")
     if q.device.type == "cpu":
         positions = start_len[:, None] + torch.arange(q.shape[1],
                                                       device=q.device)
@@ -134,6 +224,26 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
             "ssd_chunk_scan has no backward kernel yet: gradients through "
             "the SSD on the card wait for the SSD backward (ROADMAP.md §1 "
             "item 4); train the ssm and hybrid families on the CPU")
+    if isinstance(x, DTensor):
+        # local to a chunk (M, dim 0) and a head (dim 2 of x, dt, cum)
+        mesh = x.device_mesh
+        pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+              for p in x.placements]
+        bc_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in pl]
+        loc = [t.redistribute(mesh, pl).to_local() for t in (x, dt, cum)]
+        loc += [t.redistribute(mesh, bc_pl).to_local() for t in (b_, c_)]
+        y, state = ssd_intra_chunk(*loc)
+        st_pl = [Shard(1) if isinstance(p, Shard) and p.dim == 2 else p
+                 for p in pl]
+        m, _, h, p_ = x.shape
+        st_shape = (m, h, p_, b_.shape[-1])
+        return (DTensor.from_local(
+                    y, mesh, pl, run_check=False, shape=x.shape,
+                    stride=mesh_ops.stride_like(y, x.shape)),
+                DTensor.from_local(
+                    state, mesh, st_pl, run_check=False, shape=st_shape,
+                    stride=mesh_ops.stride_like(state, st_shape)))
     return ssd_chunk_scan(x, dt, cum, b_, c_)
 
 
@@ -146,6 +256,11 @@ def attention_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
 
     K/V are read through the per-row block table; RoPE of q at position
     ``lengths - 1`` is fused into the attention."""
+    if isinstance(q, DTensor):
+        return _local_heads(attention_decode_paged, (q, "q"),
+                            (k_pages, "pool"), (v_pages, "pool"),
+                            (block_tables, "rows"), (lengths, "rows"),
+                            rope_theta=rope_theta)
     if q.device.type == "cpu":
         return attention.paged_decode_attention(q, k_pages, v_pages,
                                                 block_tables, lengths,
@@ -168,6 +283,11 @@ def attention_prefill_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
     Chunk token j attends positions ``<= start_len + j`` and is rotated
     there (fused RoPE). The CPU path returns float32, like the JAX jnp
     lowering; the kernel returns q's dtype."""
+    if isinstance(q, DTensor):
+        return _local_heads(attention_prefill_chunk_paged, (q, "q"),
+                            (k_pages, "pool"), (v_pages, "pool"),
+                            (block_tables, "rows"), (start_len, "rows"),
+                            rope_theta=rope_theta)
     if q.device.type == "cpu":
         k = attention.gather_pages(k_pages, block_tables)
         v = attention.gather_pages(v_pages, block_tables)

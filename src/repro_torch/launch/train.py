@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.distributed.sharding import ADAFACTOR_ARCHS
 from repro_torch.models.factory import build_model
 from repro_torch.training import grad_compression as gc
 from repro_torch.training.checkpoint import CheckpointManager
@@ -28,10 +29,6 @@ from repro_torch.training.fault_tolerance import (FailureInjector,
                                                   ResilientTrainer)
 from repro_torch.training.optimizer import OptimizerConfig, make_optimizer
 from repro_torch.training.train_step import loss_and_grads, make_train_step
-
-#: archs whose AdamW state would not fit, trained with Adafactor by default
-#: (``repro.distributed.sharding.ADAFACTOR_ARCHS``)
-ADAFACTOR_ARCHS = {"kimi-k2-1t-a32b"}
 
 
 @dataclass

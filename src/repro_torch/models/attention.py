@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from repro_torch.distributed import hints
+from repro_torch.distributed import hints, mesh_ops
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -25,6 +25,7 @@ NEG_INF = -1e30
 
 def _split_gqa(q: torch.Tensor, num_kv: int) -> torch.Tensor:
     b, s, h, d = q.shape
+    q = mesh_ops.fit_split(q, 2, num_kv)
     return q.reshape(b, s, num_kv, h // num_kv, d)
 
 
@@ -36,7 +37,7 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv = k.shape[2]
     qg = _split_gqa(q, kv).float()
     scale = 1.0 / math.sqrt(d)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    logits = mesh_ops.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
     if causal:
         qpos = torch.arange(sq, device=q.device) + q_offset
         kpos = torch.arange(k.shape[1], device=q.device)
@@ -44,7 +45,7 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         logits = torch.where(mask[None, None, None], logits,
                              torch.tensor(NEG_INF, device=q.device))
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    out = mesh_ops.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
@@ -71,7 +72,7 @@ def _flash_one_qblock(qg: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
     acc = torch.zeros((b, kv, g, qb, d), device=qg.device)
     logits_bf16 = hints.get("attn_logits_bf16")
     for j in range(nj):
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg32, kb[j].float())
+        s = mesh_ops.einsum("bqkgd,bskd->bkgqs", qg32, kb[j].float())
         if diag_mask and j == nj - 1:
             s = torch.where(tri, s, neg)
         if logits_bf16:
@@ -84,7 +85,7 @@ def _flash_one_qblock(qg: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
         l = l * alpha + torch.sum(p.float(), dim=-1)
         # p rounds to v's dtype, the product sums in float32 (JAX's
         # preferred_element_type)
-        acc = acc * alpha[..., None] + torch.einsum(
+        acc = acc * alpha[..., None] + mesh_ops.einsum(
             "bkgqs,bskd->bkgqd", p.to(vb.dtype).float(), vb[j].float())
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
@@ -149,13 +150,13 @@ def prefill_chunk_attention(q: torch.Tensor, k_full: torch.Tensor,
         q = layers.apply_rope(q, positions, rope_theta)
     qg = q.reshape(b, c, kvh, g, d).float()
     scale = 1.0 / math.sqrt(d)
-    logits = torch.einsum("bckgd,bskd->bkgcs", qg, k_full.float()) * scale
+    logits = mesh_ops.einsum("bckgd,bskd->bkgcs", qg, k_full.float()) * scale
     kpos = torch.arange(s, device=q.device)
     valid = kpos[None, None, :] <= positions[:, :, None]            # (B,C,S)
     logits = torch.where(valid[:, None, None], logits,
                          torch.tensor(NEG_INF, device=q.device))
     pr = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bkgcs,bskd->bckgd", pr, v_full.float())
+    o = mesh_ops.einsum("bkgcs,bskd->bckgd", pr, v_full.float())
     return o.reshape(b, c, h, d)
 
 
@@ -175,14 +176,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         q = layers.apply_rope(q, length[:, None] - 1, rope_theta)
     qg = _split_gqa(q, kv)[:, 0].float()                 # (B, KV, G, d)
     scale = 1.0 / math.sqrt(d)
-    logits = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale
+    logits = mesh_ops.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale
     valid = torch.arange(s, device=q.device)[None, :] < length[:, None]
     logits = torch.where(valid[:, None, None, :], logits,
                          torch.tensor(NEG_INF, device=q.device))
     m = torch.amax(logits, dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     norm = torch.sum(p, dim=-1, keepdim=True)
-    out = torch.einsum("bkgs,bskd->bkgd", p / norm, v_cache.float())
+    out = mesh_ops.einsum("bkgs,bskd->bkgd", p / norm, v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import mesh_ops
 from repro_torch.kernels import ops
 from repro_torch.models import attention, layers, transformer
 from repro_torch.models.transformer import (_remat, _write_mask,
@@ -73,7 +74,7 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig,
            remat: str = "full") -> torch.Tensor:
     """frames: (B, Tf, D) precomputed embeddings (frontend stub) -> the
     normed encoder output (B, Tf, D)."""
-    x = torch.einsum("btd,de->bte", frames, params["frontend"])
+    x = mesh_ops.einsum("btd,de->bte", frames, params["frontend"])
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     def body(x, lp):
@@ -91,13 +92,13 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig,
 
 
 def _cross_kv(p: dict, enc_out: torch.Tensor):
-    k = torch.einsum("btd,dke->btke", enc_out, p["wk"])
-    v = torch.einsum("btd,dke->btke", enc_out, p["wv"])
+    k = mesh_ops.einsum("btd,dke->btke", enc_out, p["wk"])
+    v = mesh_ops.einsum("btd,dke->btke", enc_out, p["wv"])
     return k, v
 
 
 def _cross_q(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    q = mesh_ops.einsum("bsd,dhe->bshe", x, p["wq"])
     if cfg.use_qk_norm:
         q = layers.rmsnorm(q, p["q_norm"], cfg.norm_eps)
     return q
@@ -110,7 +111,7 @@ def _cross_attend(p: dict, x: torch.Tensor, k: torch.Tensor,
         o = attention.flash_attention_jnp(q, k, v, causal=False)
     else:
         o = attention.naive_attention(q, k, v, causal=False)
-    return torch.einsum("bshe,hed->bsd", o, p["wo"])
+    return mesh_ops.einsum("bshe,hed->bsd", o, p["wo"])
 
 
 def forward(params: dict, frames: torch.Tensor, tokens: torch.Tensor,
@@ -215,7 +216,7 @@ def _run_decoder(params: dict, cache: dict, x: torch.Tensor,
         tf = torch.full((b,), ck.shape[1], dtype=torch.int32,
                         device=x.device)
         o = attention.decode_attention(q, ck, cv, tf)
-        x = x + torch.einsum("bshe,hed->bsd", o, lp["cross_attn"]["wo"])
+        x = x + mesh_ops.einsum("bshe,hed->bsd", o, lp["cross_attn"]["wo"])
         h2 = layers.rmsnorm(x, lp["ln2"], cfg.norm_eps)
         x = x + layers.mlp(lp["ffn"], h2)
     return transformer.lm_logits(params, x, cfg, tied=False)

@@ -17,16 +17,18 @@ the JAX bundle applies to the rebuilt cache after every step.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import hints
 from repro_torch.models import (encdec, hybrid, layers, mamba_lm,
                                 transformer)
+from repro_torch.training.tree import tree_map
 
 Params = Any
 Cache = dict
@@ -53,6 +55,13 @@ class ModelBundle:
         if f == "encdec":
             return encdec.init_params(gen, self.cfg, dtype)
         raise ValueError(f"unknown family {f}")
+
+    def abstract_params(self, dtype=torch.bfloat16) -> Params:
+        """Meta tensors of every parameter's shape and dtype — JAX's
+        ``eval_shape`` of ``init``: nothing is allocated (the initialiser
+        runs under a ``FakeTensorMode``)."""
+        cpu = ModelBundle(self.cfg, torch.device("cpu"))
+        return _abstract(lambda: cpu.init(torch.Generator(), dtype))
 
     # ------------------------------------------------------------ forward
     def forward(self, params: Params, batch: dict, *, remat: str = "full"):
@@ -280,6 +289,42 @@ class ModelBundle:
             return False
         return not (self.cfg.family == "hybrid" and self.cfg.moe_every > 0)
 
+    # ---------------------------------------------------------- dry-run IO
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """Meta stand-ins for every model input of a cell: the (B, S)
+        int32 tokens (enc-dec: and ``frames_len(S)`` bf16 frames) of a
+        train or prefill cell; a decode cell's one new token a row and its
+        (B,) int32 lengths."""
+        b, s = shape.global_batch, shape.seq_len
+        meta = functools.partial(torch.empty, device="meta")
+        if shape.kind in ("train", "prefill"):
+            specs = {"tokens": meta((b, s), dtype=torch.int32)}
+            if self.cfg.family == "encdec":
+                specs["frames"] = meta(
+                    (b, encdec.frames_len(s), self.cfg.d_model),
+                    dtype=torch.bfloat16)
+            return specs
+        return {"tokens": meta((b, 1), dtype=torch.int32),
+                "lengths": meta((b,), dtype=torch.int32)}
+
+    def abstract_cache(self, shape: ShapeConfig,
+                       dtype=torch.bfloat16) -> Cache:
+        """Meta tensors of :meth:`init_cache` for the cell's batch and
+        sequence length (the int8 hint in force decides k/v's dtype and
+        the scales), with JAX's shapes: the contiguous KV leaves hold
+        ``seq_len`` positions, the last of which a step on this cache
+        takes for its drop position (so it serves ``seq_len - 1``)."""
+        cpu = ModelBundle(self.cfg, torch.device("cpu"))
+        cache = _abstract(lambda: cpu.init_cache(shape.global_batch,
+                                                 shape.seq_len, dtype))
+        for k in self.DROP_POSITION_KEYS:
+            if k in cache:
+                t = cache[k]
+                cache[k] = torch.empty((*t.shape[:2], t.shape[2] - 1,
+                                        *t.shape[3:]), dtype=t.dtype,
+                                       device="meta")
+        return cache
+
     # ------------------------------------------------- cache slot slicing
     def _batch_axis(self, key: str) -> int:
         """The batch axis of a top-level slot-resident leaf: hybrid's SSM
@@ -321,6 +366,16 @@ class ModelBundle:
                 dst = dst[:, :, :piece[k].shape[2]]
             dst.copy_(piece[k])
         return cache
+
+
+def _abstract(make) -> Any:
+    """The tree ``make()`` returns, as meta tensors: ``make`` runs under a
+    ``FakeTensorMode``, so no leaf is allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        tree = make()
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), tree)
 
 
 def build_model(cfg: ModelConfig,

@@ -8,6 +8,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import mesh_ops
+
 # --------------------------------------------------------------------- init
 
 
@@ -69,23 +71,23 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 
 def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU feed-forward."""
-    gate = x @ params["w_gate"]
-    up = x @ params["w_up"]
-    return (F.silu(gate) * up) @ params["w_down"]
+    gate = mesh_ops.matmul(x, params["w_gate"])
+    up = mesh_ops.matmul(x, params["w_up"])
+    return mesh_ops.matmul(F.silu(gate) * up, params["w_down"])
 
 
 # ---------------------------------------------------------------- embedding
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens.long()]
+    return mesh_ops.take_rows(table, tokens.long())
 
 
 def unembed(x: torch.Tensor, table_or_head: torch.Tensor,
             transpose: bool) -> torch.Tensor:
     """Logits. ``transpose``: table is (V, D) tied-embedding form."""
     if transpose:
-        return x @ table_or_head.T
-    return x @ table_or_head
+        return mesh_ops.matmul(x, table_or_head.T)
+    return mesh_ops.matmul(x, table_or_head)
 
 
 # ----------------------------------------------------------- cross entropy
@@ -99,7 +101,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     m = torch.amax(logits, dim=-1, keepdim=True)
     shifted = logits - m.detach()
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
-    label_logit = torch.gather(shifted, -1, labels.long()[..., None])[..., 0]
+    label_logit = mesh_ops.gather_last(shifted,
+                                       labels.long()[..., None])[..., 0]
     nll = lse - label_logit
     if mask is not None:
         mask = mask.float()

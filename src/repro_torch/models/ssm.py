@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import mesh_ops
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -90,11 +91,11 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def _project(params: dict, x: torch.Tensor):
-    z = torch.einsum("bsd,de->bse", x, params["w_z"])
-    xc = torch.einsum("bsd,de->bse", x, params["w_x"])
-    b_ = torch.einsum("bsd,dn->bsn", x, params["w_B"])
-    c_ = torch.einsum("bsd,dn->bsn", x, params["w_C"])
-    dt = torch.einsum("bsd,dh->bsh", x, params["w_dt"])
+    z = mesh_ops.einsum("bsd,de->bse", x, params["w_z"])
+    xc = mesh_ops.einsum("bsd,de->bse", x, params["w_x"])
+    b_ = mesh_ops.einsum("bsd,dn->bsn", x, params["w_B"])
+    c_ = mesh_ops.einsum("bsd,dn->bsn", x, params["w_C"])
+    dt = mesh_ops.einsum("bsd,dh->bsh", x, params["w_dt"])
     return z, xc, b_, c_, dt
 
 
@@ -108,7 +109,7 @@ def _gate_out(params: dict, y: torch.Tensor, z: torch.Tensor,
     """Gated RMSNorm then the output projection. y: (B, S, d_in)."""
     y = y.to(dtype) * F.silu(z)
     y = layers.rmsnorm(y, params["gate_norm"], cfg.norm_eps)
-    return torch.einsum("bse,ed->bsd", y, params["w_out"])
+    return mesh_ops.einsum("bse,ed->bsd", y, params["w_out"])
 
 
 def _intra_chunk(xh: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
@@ -122,11 +123,11 @@ def _intra_chunk(xh: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xh.device))
     decay = torch.where(tri[None, None, :, :, None], torch.exp(seg),
                         torch.zeros((), device=xh.device))
-    cb = torch.einsum("bcqn,bckn->bcqk", cc, bc)                     # (B,nc,Q,Q)
+    cb = mesh_ops.einsum("bcqn,bckn->bcqk", cc, bc)                     # (B,nc,Q,Q)
     scores = cb[..., None] * decay * dtc[:, :, None, :, :]
-    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", scores, xh)
+    y_intra = mesh_ops.einsum("bcqkh,bckhp->bcqhp", scores, xh)
     wgt = torch.exp(cum[:, :, -1:, :] - cum) * dtc                   # (B,nc,Q,H)
-    states = torch.einsum("bcqn,bcqh,bcqhp->bchpn", bc, wgt, xh)
+    states = mesh_ops.einsum("bcqn,bcqh,bcqhp->bchpn", bc, wgt, xh)
     return y_intra, states
 
 
@@ -169,6 +170,12 @@ def ssd_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     c_, conv_c = _causal_conv(c_, params["conv_C"], st.get("conv_C"),
                               valid=token_valid)
     xc, b_, c_ = F.silu(xc), F.silu(b_), F.silu(c_)
+    # on a mesh: the layouts of the projections' specs, before the chunk
+    # reshapes (DTensor would carry the conv's sequence split into them)
+    xc = mesh_ops.fit_split(mesh_ops.anchor(xc, "batch", None, "model"), 2, h)
+    b_ = mesh_ops.anchor(b_, "batch", None, None)
+    c_ = mesh_ops.anchor(c_, "batch", None, None)
+    dt = mesh_ops.anchor(dt, "batch", None, "model")
 
     a = -torch.exp(params["A_log"])                                  # (H,)
     dt = _softplus(dt.float() + params["dt_bias"])                   # (B,S,H)
@@ -182,7 +189,8 @@ def ssd_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     bc = b_.reshape(b, nc, q, n).float()
     cc = c_.reshape(b, nc, q, n).float()
     dtc = dt.reshape(b, nc, q, h)
-    cum = torch.cumsum(dtc * a[None, None, None], dim=2)            # (B,nc,Q,H)
+    cum = mesh_ops.along(lambda t: torch.cumsum(t, dim=2),
+                         dtc * a[None, None, None], 2)               # (B,nc,Q,H)
 
     # ---- intra-chunk quadratic and chunk states: the SSD kernel on the card
     intra = _intra_chunk if xh.device.type == "cpu" else _intra_chunk_kernel
@@ -199,10 +207,12 @@ def ssd_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
         carry = chunk_decay[:, c, :, None, None] * carry + states[:, c]
     prev_states = torch.stack(prev, dim=1)                           # (B,nc,H,P,N)
 
-    y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp", cc, prev_states,
+    y_inter = mesh_ops.einsum("bcqn,bchpn,bcqh->bcqhp", cc, prev_states,
                            torch.exp(cum))
-    y = (y_intra + y_inter).reshape(b, s, h, p)
-    y = y + params["D_skip"][None, None, :, None] * xh.reshape(b, s, h, p)
+    y = mesh_ops.anchor((y_intra + y_inter).reshape(b, s, h, p),
+                        "batch", None, "model", None)
+    y = y + params["D_skip"][None, None, :, None] * mesh_ops.anchor(
+        xh.reshape(b, s, h, p), "batch", None, "model", None)
     out = _gate_out(params, y.reshape(b, s, h * p), z, cfg, x.dtype)
     state = {"ssm": carry.float(), "conv_x": conv_x, "conv_B": conv_b,
              "conv_C": conv_c}
@@ -238,9 +248,9 @@ def ssm_decode_step(params: dict, x: torch.Tensor, state: dict,
     dec = torch.exp(dt1 * a[None])                                   # (B,H)
     xh = xc.reshape(b, h, p).float()
     s_prev = state["ssm"].float()                                    # (B,H,P,N)
-    s_new = dec[:, :, None, None] * s_prev + torch.einsum(
+    s_new = dec[:, :, None, None] * s_prev + mesh_ops.einsum(
         "bh,bhp,bn->bhpn", dt1, xh, b_)
-    y = torch.einsum("bhpn,bn->bhp", s_new, c_)
+    y = mesh_ops.einsum("bhpn,bn->bhp", s_new, c_)
     y = y + params["D_skip"][None, :, None] * xh
     out = _gate_out(params, y.reshape(b, 1, h * p), z, cfg, x.dtype)
     new_state = {"ssm": s_new, "conv_x": conv_x, "conv_B": conv_b,

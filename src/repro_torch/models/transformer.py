@@ -13,8 +13,11 @@ call time as JAX reads them at trace time: ``kv_cache_dtype="int8"``
 head) bf16 scales, and the steps quantize what they write and
 dequantize what attention reads), ``attn_impl="repeat_kv"``
 (:func:`attention_block`), and the two sharding constraints
-``attn_kv_replicated`` and ``residual_replicated``, which JAX drops off
-a device mesh and the port, without a mesh yet, accepts and ignores.
+``attn_kv_replicated`` and ``residual_replicated``, which redistribute
+DTensor activations on a device mesh and, as in JAX, change nothing off
+one. On a mesh the einsums are ``mesh_ops.einsum`` (XLA's dot rule on
+the shards) and a few layouts are anchored (``mesh_ops.anchor``) where
+DTensor's op-by-op choice would wander from where XLA settles.
 Parameters are a nested dict with the same leaf names and shapes as the
 JAX package — the einsum layouts ``wq (d, h, hd)``, ``wk``/``wv (d, kv,
 hd)``, ``wo (h, hd, d)`` — with every per-layer leaf stacked on a leading
@@ -36,10 +39,11 @@ Attention never reads it.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import hints
+from repro_torch.distributed import hints, mesh_ops
 from repro_torch.kernels import ops
 from repro_torch.models import layers, moe
 
@@ -161,9 +165,9 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, rope_q: bool = True):
     """``rope_q=False``: leave q un-rotated — the paged attention applies
     the rotation itself (k is always rotated before caching)."""
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
-    k = torch.einsum("bsd,dke->bske", x, p["wk"])
-    v = torch.einsum("bsd,dke->bske", x, p["wv"])
+    q = mesh_ops.einsum("bsd,dhe->bshe", x, p["wq"])
+    k = mesh_ops.einsum("bsd,dke->bske", x, p["wk"])
+    v = mesh_ops.einsum("bsd,dke->bske", x, p["wv"])
     if cfg.use_qk_norm:
         q = layers.rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = layers.rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -183,9 +187,11 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     returned: the flash kernel runs at one query head a KV head on CUDA;
     the CPU takes the JAX hint's path (``naive_attention`` below
     ``ops.FLASH_MIN_SEQ`` positions, ``flash_attention_jnp`` from there).
-    ``attn_kv_replicated`` pins k/v to model-replicated on a device mesh;
-    off a mesh JAX drops the constraint, and the port, which has no mesh
-    yet, leaves the hint unread."""
+    Otherwise, under ``attn_kv_replicated`` on a device mesh (DTensor
+    activations), k/v are redistributed to batch-on-dp and replicated
+    over ``model`` and q to its heads on ``model`` where they are a
+    multiple of 16 — JAX's constraints, gradients included; off a mesh,
+    as in JAX, the hint changes nothing."""
     q, k, v = _project_qkv(p, x, cfg, positions)
     if (hints.get("attn_impl") == "repeat_kv"
             and cfg.num_kv_heads < cfg.num_heads):
@@ -194,8 +200,14 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
                                   v.repeat_interleave(g, dim=2),
                                   causal=causal)
     else:
+        if hints.get("attn_kv_replicated"):
+            h_ax = "model" if cfg.num_heads % 16 == 0 else None
+            k = mesh_ops.anchor(k, "batch", None, None, None)
+            v = mesh_ops.anchor(v, "batch", None, None, None)
+            q = mesh_ops.anchor(q, "batch", None, h_ax, None)
         o = ops.attention_prefill(q, k, v, causal=causal)
-    out = torch.einsum("bshe,hed->bsd", o, p["wo"])
+    o = mesh_ops.anchor(o, "batch", None, "model", None)
+    out = mesh_ops.einsum("bshe,hed->bsd", o, p["wo"])
     return out, (k, v)
 
 
@@ -236,7 +248,8 @@ def _write(cache: torch.Tensor, new: torch.Tensor, index) -> None:
     """Scatter the (B, C, KV, hd) new keys or values — or their (B, C, KV)
     int8 scales — to ``index`` (from :func:`cache_write_index` or
     :func:`paged_write_index`)."""
-    cache[index] = new.reshape(-1, *new.shape[2:]).to(cache.dtype)
+    mesh_ops.index_put(cache, index,
+                       new.reshape(-1, *new.shape[2:]).to(cache.dtype))
 
 
 def _quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -267,13 +280,15 @@ def _cache_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
     if k_scale is None:
         _write(k_cache, k, write_index)
         _write(v_cache, v, write_index)
-        return k_cache[:, :s], v_cache[:, :s]
+        return (mesh_ops.prefix(k_cache, 1, s),
+                mesh_ops.prefix(v_cache, 1, s))
     full = []
     for cache, scales, t in ((k_cache, k_scale, k), (v_cache, v_scale, v)):
         q, scale = _quantize_kv(t)
         _write(cache, q, write_index)
         _write(scales, scale, write_index)
-        full.append(cache[:, :s].float() * scales[:, :s, :, None].float())
+        full.append(mesh_ops.prefix(cache, 1, s).float()
+                    * mesh_ops.prefix(scales, 1, s)[..., None].float())
     return full[0], full[1]
 
 
@@ -298,7 +313,7 @@ def attention_decode_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
                                v_scale)
     o = ops.attention_decode(q, k_full, v_full, lengths + 1,
                              rope_theta=cfg.rope_theta)
-    return torch.einsum("bshe,hed->bsd", o, p["wo"])
+    return mesh_ops.einsum("bshe,hed->bsd", o, p["wo"])
 
 
 def _chunk_attend(p: dict, q: torch.Tensor, k_full: torch.Tensor,
@@ -309,7 +324,7 @@ def _chunk_attend(p: dict, q: torch.Tensor, k_full: torch.Tensor,
     sits at ``start_len + j``."""
     o = ops.attention_prefill_chunk(q, k_full, v_full, start_len,
                                     rope_theta=cfg.rope_theta)
-    return torch.einsum("bshe,hed->bsd", o.to(x_dtype), p["wo"])
+    return mesh_ops.einsum("bshe,hed->bsd", o.to(x_dtype), p["wo"])
 
 
 def attention_prefill_chunk_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -355,7 +370,7 @@ def attention_decode_block_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
     _write(v_pages, v, write_index)
     o = ops.attention_decode_paged(q, k_pages, v_pages, block_tables,
                                    lengths + 1, rope_theta=cfg.rope_theta)
-    return torch.einsum("bshe,hed->bsd", o, p["wo"])
+    return mesh_ops.einsum("bshe,hed->bsd", o, p["wo"])
 
 
 def attention_prefill_chunk_block_paged(p: dict, x: torch.Tensor,
@@ -379,7 +394,7 @@ def attention_prefill_chunk_block_paged(p: dict, x: torch.Tensor,
     o = ops.attention_prefill_chunk_paged(q, k_pages, v_pages, block_tables,
                                           start_len,
                                           rope_theta=cfg.rope_theta)
-    return torch.einsum("bshe,hed->bsd", o.to(x.dtype), p["wo"])
+    return mesh_ops.einsum("bshe,hed->bsd", o.to(x.dtype), p["wo"])
 
 
 def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -458,6 +473,15 @@ def _remat(fn, policy: str):
     raise ValueError(f"remat policy {policy!r}: none, full or dots")
 
 
+def _residual_constraint(x: torch.Tensor) -> torch.Tensor:
+    """Under ``residual_replicated``: the residual stream pinned to
+    batch-on-dp and replicated over ``model`` after every sublayer (on a
+    mesh; a plain tensor as it is, as JAX drops the constraint off one)."""
+    if not hints.get("residual_replicated"):
+        return x
+    return mesh_ops.anchor(x, "batch", None, None)
+
+
 def forward(params: dict, tokens: torch.Tensor | None, cfg: ModelConfig, *,
             remat: str = "full", embeds: torch.Tensor | None = None,
             causal: bool = True, return_cache: bool = False):
@@ -469,15 +493,17 @@ def forward(params: dict, tokens: torch.Tensor | None, cfg: ModelConfig, *,
     sums the MoE layers' balance terms (0 without experts)."""
     x = (embeds if embeds is not None
          else layers.embed(params["embedding"], tokens))
+    x = mesh_ops.anchor(x, "batch", None, None)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     def body(x, lp):
         h = layers.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         attn_out, kv = attention_block(lp["attn"], h, cfg, positions, causal)
-        x = x + attn_out
+        x = _residual_constraint(x + attn_out)
         h2 = layers.rmsnorm(x, lp["ln2"], cfg.norm_eps)
         ffn_out, a = _ffn(lp["ffn"], h2, cfg)
-        return x + ffn_out, a, (kv if return_cache else None)
+        return (_residual_constraint(x + ffn_out), a,
+                (kv if return_cache else None))
 
     body = _remat(body, remat)
     ks, vs = [], []
@@ -496,7 +522,17 @@ def forward(params: dict, tokens: torch.Tensor | None, cfg: ModelConfig, *,
 
 def fill_cache(cache: dict, kv: dict, s: int) -> dict:
     """Write a whole prompt's (L, B, S, KV, hd) keys/values into the first
-    ``s`` positions of a contiguous cache from :func:`init_kv_cache`."""
+    ``s`` positions of a contiguous cache from :func:`init_kv_cache`. On
+    a mesh (DTensor keys/values) the cache's two leaves are rebuilt as the
+    keys and values followed by zeros, in their layout (an in-place write
+    of a sharded tensor into a plain one has no DTensor rule)."""
+    if isinstance(kv["k"], DTensor):
+        for n in ("k", "v"):
+            t = kv[n].to(cache[n].dtype)
+            tail = list(t.shape)
+            tail[2] = cache[n].shape[2] - s
+            cache[n] = torch.cat([t, mesh_ops.zeros(tail, like=t)], dim=2)
+        return cache
     cache["k"][:, :, :s] = kv["k"]
     cache["v"][:, :, :s] = kv["v"]
     return cache

@@ -38,7 +38,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.bench.scenario", "repro_torch.core.simulator",
             "repro_torch.kernels.autotune", "repro_torch.roofline.analysis",
             "repro_torch.resilience", "repro_torch.serving.router",
-            "repro_torch.telemetry", "repro_torch.models.encdec"} <= set(mods)
+            "repro_torch.telemetry", "repro_torch.models.encdec",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.mesh_ops"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
