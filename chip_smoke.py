@@ -66,8 +66,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                 seamless encoder without the mask (4 x 1000 frames, 16
                 heads of 64; timed beside SDPA) and decoder (causal, S 64
                 and 63), and the reduced configs' (S 24, 16 and 10, 4 heads
-                of 16 over 2 or 4 KV heads, causal or not); each called
-                twice, bitwise equal;
+                of 16 over 2 or 4 KV heads, causal or not; REDUCED_FLASH,
+                the backward too); each forward called twice, bitwise
+                equal;
               * the mesh phase's geometry: the contiguous decode over a
                 float32 cache of 2,048 positions (4 rows, lengths 2, 301,
                 1,025 and 2,048), and flash forward and backward at 1 x
@@ -133,7 +134,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               AdamW steps at full width cut to 2 layers under
               best_hints(cfg, "train") (repeat_kv, bf16 flash logits,
               remat dots), launches exact, each loss within 1e-4 of the
-              CPU's from the same weights.
+              CPU's from the same weights, and the first step's loss_fn
+              gradients within 1e-3 of each leaf's largest CPU gradient.
    families — the same CLI and trace at full width on the vlm, moe,
               hybrid and encdec families, one at a time, each cut in depth
               only as far as one card forces and the cut printed:
@@ -158,9 +160,13 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               kimi, jamba, seamless) on the card and on the CPU from one
               set of weights: forward logits within 1e-3 (vlm embeds and
               enc-dec frames included; every flash forward at a FAMILY_FLASH
-              geometry), and 6 requests served under mixed with equal token
+              geometry), 6 requests served under mixed with equal token
               streams (seamless's through multi-slot dispatches with padded
-              rows).
+              rows), and loss_fn gradients (remat none) within 1e-3 of each
+              leaf's largest CPU gradient, flash and its backward once an
+              attention layer each, at a REDUCED_FLASH geometry; jamba and
+              mamba2-1.3b reduced must refuse gradients on the card (the SSD
+              has no backward, nor has the JAX package's Pallas SSD).
    scenario — the paper's three-app concurrent workload (chatbot 2,
               imagegen 2, live_captions 5 requests; 256 chips of the
               simulated tpu-v5e) as a repro_torch.bench.Scenario through
@@ -211,7 +217,16 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
               cache within 1e-6 (the run says whether bitwise); launches
               exact (flash 4 and its backward 2, flash 2, decode 2), and
               every launch at a geometry phase 3 checked (mesh_geometry).
-              Then the port's dry run of
+              Then, in the same NCCL group, distributed.pipeline's
+              pipelined_forward on a (1,) ("stage",) mesh: all 22
+              tinyllama-1.1b layers at full width (the dense block as
+              layer_fn), 4 x 2048 tokens' embeddings in 4 microbatches:
+              bitwise equal to the stack applied to each microbatch; no
+              further from the stack in float64 than twice the float32
+              stack on the whole batch is (each in shares of 2e-5 +
+              2e-5·|ref|, which 22 float32 layers overrun whole batch or
+              not); flash exactly 22 x (M + S - 1) = 88 times, all at
+              the "mesh prefill" geometry. Then the port's dry run of
               three production cells (tinyllama-1.1b x train_4k on
               (16, 16); tinyllama-1.1b x decode_32k and moonshot-v1-16b-a3b
               x prefill_32k under --autotune) in a subprocess on the
@@ -323,21 +338,24 @@ class FlashShape:
     d: int
 
 
+#: the reduced configs' forwards and loss_fn gradients on the card (2 rows
+#: of 24 tokens, of 16 embeddings for vlm, of 10 frames for the enc-dec
+#: encoder; 4 heads of 16 over 2 or 4 KV heads): flash forward and backward
+REDUCED_FLASH = [
+    FlashShape("reduced, KV 2", 2, 24, True, 4, 2, 16),
+    FlashShape("reduced vlm embeds, KV 2", 2, 16, True, 4, 2, 16),
+    FlashShape("reduced, KV 4", 2, 24, True, 4, 4, 16),
+    FlashShape("reduced encoder", 2, 10, False, 4, 4, 16)]
 #: every geometry the families' forward and prefill run the flash forward
 #: at: the seamless encoder (no mask) and decoder (the forward over
 #: SEAMLESS_S tokens, the prefill over all but the last) at full width, and
-#: the reduced configs' forwards on the card (2 rows of 24 tokens, of 16
-#: embeddings for vlm, of 10 frames for the enc-dec encoder; 4 heads of 16
-#: over 2 or 4 KV heads); flash_geometry fails on any other
+#: REDUCED_FLASH; flash_geometry fails on any other
 FAMILY_FLASH = [
     FlashShape("seamless encoder", B, ENC_T, False, ENC_H, ENC_H, ENC_D),
     FlashShape("seamless decoder, forward", B, SEAMLESS_S, True, 16, 16, 64),
     FlashShape("seamless decoder, prefill", B, SEAMLESS_S - 1, True, 16, 16,
                64),
-    FlashShape("reduced, KV 2", 2, 24, True, 4, 2, 16),
-    FlashShape("reduced vlm embeds, KV 2", 2, 16, True, 4, 2, 16),
-    FlashShape("reduced, KV 4", 2, 24, True, 4, 4, 16),
-    FlashShape("reduced encoder", 2, 10, False, 4, 4, 16)]
+    *REDUCED_FLASH]
 
 
 def fail(msg: str) -> None:
@@ -746,10 +764,11 @@ def family_kernel_cases(torch, F, K, ref, gen, dev):
     whole table, and an idle row; prefill chunks from 0, across a page,
     past two pages and ending at the table's last position; the contiguous
     kernels over a cache of the table's positions — then #5 at jamba's
-    widths (SSD_Q chunks of SSD_M rows) and #6 without the mask at the
-    seamless encoder's shape (f32, timed beside SDPA). Each against its
-    plain version and called twice, bitwise equal. Returns the max abs
-    error of each kernel."""
+    widths (SSD_Q chunks of SSD_M rows), #6 at every FAMILY_FLASH shape
+    (f32; the seamless encoder's, without the mask, timed beside SDPA) and
+    its backward at REDUCED_FLASH. Each against its plain version, the
+    forwards called twice, bitwise equal. Returns the max abs error of
+    each kernel."""
     errs: dict = {}
 
     def note(name, err):
@@ -801,6 +820,11 @@ def family_kernel_cases(torch, F, K, ref, gen, dev):
                 f"{fs.h}, KV {fs.kv}, d {fs.d}, causal={fs.causal}, f32): "
                 f"max abs err {err:.3e} (tol {ATOL} + {RTOL}*|plain|), "
                 "repeats bitwise equal")
+        if fs in REDUCED_FLASH:
+            berr = flash_bwd_case(torch, K, ref, gen, dev, fs, q, k, v)
+            note("flash_attention_bwd", max(berr))
+            line += (f"; backward dq/dk/dv "
+                     f"{'/'.join(f'{e:.3e}' for e in berr)}")
         if fs.label == "seamless encoder":
             # q, k, v read and o written once (f32); q·k and p·v, 2·d flops
             # each, and one exp, per pair and head
@@ -1131,28 +1155,97 @@ def flash_case(torch, K, ref, gen, dev, fs):
     return err, (q, k, v)
 
 
-@contextlib.contextmanager
-def flash_geometry(torch, what):
-    """Records the geometry of every flash forward that ops launches
-    inside, and fails on one that is not a FAMILY_FLASH shape (each held
-    against its plain version in phase 3)."""
-    from repro_torch.kernels import ops
-    orig, seen = ops.flash_attention, set()
+def flash_bwd_case(torch, K, ref, gen, dev, fs, q, k, v) -> list:
+    """The backward kernel at ``fs`` on flash_case's inputs against its
+    plain version. Returns the max abs errors of dq, dk and dv."""
+    o, lse = K["flash_attention"](q, k, v, causal=fs.causal, return_lse=True)
+    do = torch.randn(o.shape, generator=gen, device=dev)
+    got = K["flash_attention_bwd"](q, k, v, o, lse, do, causal=fs.causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, fs.causal)
+    torch.cuda.synchronize()
+    what = (f"flash_attention_bwd[{fs.label}: B={fs.b} S={fs.s} H={fs.h}"
+            f" KV={fs.kv} d={fs.d} causal={fs.causal}]")
+    return [check_close(f"{what} {n}", g, w)
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)]
 
-    def recorded(q, k, v, *, causal=True, **kwargs):
-        seen.add((q.shape[0], q.shape[2], k.shape[2], causal, q.shape[1],
-                  k.shape[1], q.shape[3], q.dtype, k.dtype))
-        return orig(q, k, v, causal=causal, **kwargs)
-    ops.flash_attention = recorded
+
+def flash_keys(torch, shapes, backward: bool) -> set:
+    """kernel_geometry's keys of the float32 flash forward (and backward)
+    at ``shapes``."""
+    f32 = torch.float32
+    kinds = ("flash", "flash backward") if backward else ("flash",)
+    return {(kind, f.b, f.s, f.s, f.causal, f.h, f.kv, f.d, f32, f32)
+            for f in shapes for kind in kinds}
+
+
+@contextlib.contextmanager
+def kernel_geometry(torch, what, checked: set):
+    """Records the geometry of every launch of kernel #6 (the forward
+    through ops and through its autograd wrapper, the backward through the
+    wrapper) and of kernel #3 inside, of the kinds ``checked`` names, and
+    fails on one not in ``checked`` (keys: kind, B, Sq, Skv, causal, H,
+    KV, d, dtypes; for decode: B, H, KV, positions, d, dtypes, the lengths
+    read), the geometries phase 3 held against their plain versions. The
+    kernels' own functions stay as they are (each counts its launches
+    under its own name); ops' bindings and the wrapper are swapped."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    saved = {name: getattr(ops, name) for name in
+             ("flash_attention", "decode_attention", "FlashAttention")}
+    base, seen = saved["FlashAttention"], set()
+    kinds = {key[0] for key in checked}
+
+    def record(key):
+        if key[0] in kinds:
+            seen.add(key)
+
+    def flash_key(kind, q, k, causal):
+        return (kind, q.shape[0], q.shape[2], k.shape[2], causal,
+                q.shape[1], k.shape[1], q.shape[3], q.dtype, k.dtype)
+
+    def flash(q, k, v, *, causal=True, **kwargs):
+        record(flash_key("flash", q, k, causal))
+        return saved["flash_attention"](q, k, v, causal=causal, **kwargs)
+
+    def decode(q, k, v, lengths, **kwargs):
+        record(("decode", q.shape[0], q.shape[1], k.shape[1], k.shape[2],
+                q.shape[2], q.dtype, k.dtype, tuple(lengths.tolist())))
+        return saved["decode_attention"](q, k, v, lengths, **kwargs)
+
+    class Recorded(base):
+        @staticmethod
+        def forward(ctx, q, k, v, causal):
+            record(flash_key("flash", q, k, causal))
+            return base.forward(ctx, q, k, v, causal)
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            record(flash_key("flash backward", q, k, ctx.causal))
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                             causal=ctx.causal)
+            return dq, dk, dv, None
+
+    ops.flash_attention, ops.decode_attention = flash, decode
+    ops.FlashAttention = Recorded
     try:
         yield
     finally:
-        ops.flash_attention = orig
-    checked = {(f.b, f.s, f.s, f.causal, f.h, f.kv, f.d, torch.float32,
-                torch.float32) for f in FAMILY_FLASH}
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
     for key in sorted(seen - checked, key=str):
-        fail(f"{what}: the flash forward ran at (B, Sq, Skv, causal, H, KV, "
-             f"d, dtypes) {key}, a geometry phase 3 did not check")
+        fail(f"{what}: a kernel ran at {key}, a geometry phase 3 did not "
+             "check")
+    log(f"{what}: {len(seen)} kernel geometries, each checked in phase 3: "
+        f"{sorted(seen, key=str)}")
+
+
+def flash_geometry(torch, what):
+    """kernel_geometry at the families' geometries: the flash forward at
+    FAMILY_FLASH, its backward at REDUCED_FLASH."""
+    return kernel_geometry(torch, what,
+                           flash_keys(torch, FAMILY_FLASH, False)
+                           | flash_keys(torch, REDUCED_FLASH, True))
 
 
 def sdpa_full(torch, F, q, k, v, causal):
@@ -1784,6 +1877,51 @@ def reduced_batches(torch, cfg):
     return batches
 
 
+def family_gradients(torch, K, arch, cpu, card, cpu_params,
+                     card_params) -> dict:
+    """loss_fn gradients of a reduced config (remat none, the first of
+    reduced_batches) on the card against the CPU path from the same
+    weights: the loss within 1e-4 and every leaf within GRAD_TOL of its
+    largest CPU gradient (training_card_vs_cpu_phase's tolerances); the
+    flash forward and backward once an attention layer each, between a
+    zero of the counts and their exact check, at a geometry phase 3
+    checked. The hybrid and ssm families must raise NotImplementedError on
+    the card: the SSD kernel has no backward, as the JAX package's Pallas
+    SSD has none. Returns the launches."""
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = card.cfg
+    batch = reduced_batches(torch, cfg)[0]
+    if cfg.family in ("hybrid", "ssm"):
+        try:
+            loss_and_grads(card, card_params, batch, remat="none")
+        except NotImplementedError as e:
+            log(f"card, {arch} reduced loss_fn gradients: refused as "
+                f"expected ({str(e)[:60]}...)")
+            return {}
+        fail(f"{arch} reduced: gradients through the SSD ran on the card")
+    attn = (cfg.num_encoder_layers + cfg.num_decoder_layers
+            if cfg.family == "encdec" else cfg.num_layers)
+    zero_counts(K)
+    with flash_geometry(torch, f"{arch} reduced loss_fn gradients"):
+        lc, gc_ = loss_and_grads(card, card_params, batch, remat="none")
+        torch.cuda.synchronize()
+    counts = check_launches(K, f"{arch} reduced loss_fn gradients", {
+        "flash_attention": attn, "flash_attention_bwd": attn})
+    lh, gh = loss_and_grads(cpu, cpu_params, batch, remat="none")
+    errs = _leaf_errors(torch, gc_, gh)
+    worst = max(errs, key=errs.get)
+    dl = abs(lc.item() - lh.item())
+    if not math.isfinite(lc.item()) or dl > 1e-4 or errs[worst] > GRAD_TOL:
+        fail(f"{arch} reduced loss_fn card vs CPU: loss {lc.item()} vs "
+             f"{lh.item()}, gradient {worst} off by {errs[worst]:.3e} of "
+             "its max")
+    log(f"card vs CPU, {arch} reduced loss_fn gradients ({sorted(batch)}): "
+        f"loss {lc.item():.6f} vs {lh.item():.6f}; worst of {len(errs)} "
+        f"leaves {worst} within {errs[worst]:.3e} of its largest gradient "
+        f"(tol {GRAD_TOL})")
+    return counts
+
+
 def family_card_vs_cpu_phase(torch, K) -> dict:
     """Each FAMILY_ARCHS config at ``.reduced()`` widths, one set of
     weights (drawn on the CPU and moved): forward logits on the card
@@ -1793,7 +1931,8 @@ def family_card_vs_cpu_phase(torch, K) -> dict:
     under ``mixed`` (page 64, chunk 8, 4 slots) on both devices: the token
     streams must be equal, the card run's launches exactly
     serving_launches', and enc-dec's prefill must have run multi-slot
-    dispatches with padded rows. Returns the launches."""
+    dispatches with padded rows; then family_gradients for each, and for
+    mamba2-1.3b reduced (refused on the card). Returns the launches."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.factory import build_model
     from repro_torch.serving.engine import InferenceEngine
@@ -1849,6 +1988,13 @@ def family_card_vs_cpu_phase(torch, K) -> dict:
             f"{engine.stats.prefill_dispatches}: {plans.multi} multi-slot "
             f"({plans.padded} padded), {plans.per_slot} per-slot in place "
             "of multi-slot)")
+        add_counts(launches, family_gradients(
+            torch, K, arch, cpu, card, cpu_params, card_params))
+    cfg = get_config("mamba2-1.3b").reduced()
+    cpu, card = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+    cpu_params = cpu.init(torch.Generator().manual_seed(0))
+    family_gradients(torch, K, "mamba2-1.3b", cpu, card, cpu_params,
+                     _tree(cpu_params, lambda t: t.cuda()))
     return launches
 
 
@@ -2443,25 +2589,43 @@ def hinted_training(torch, K) -> dict:
     HINT_TRAIN_LAYERS layers under best_hints(cfg, "train") (repeat_kv,
     bf16 flash logits, remat dots), on the card between a zero of the
     counts and their exact check, and on the CPU from the same weights:
-    each step's loss within the card-vs-CPU loss tolerance (1e-4). Returns
-    the launches."""
+    each step's loss within the card-vs-CPU loss tolerance (1e-4); and
+    before them the first step's loss_fn gradients under the same hints,
+    on the card and the CPU: every leaf within GRAD_TOL of its largest CPU
+    gradient. Returns the launches."""
     from repro_torch.distributed import hints
     from repro_torch.distributed.autotune import best_hints
     from repro_torch.models.factory import build_model
     from repro_torch.training.data import DataConfig, SyntheticTokens
     from repro_torch.training.optimizer import OptimizerConfig, adamw_init
-    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.train_step import (loss_and_grads,
+                                                 make_train_step)
     model, params = tinyllama(torch, layers=HINT_TRAIN_LAYERS)
     cfg = model.cfg
+    cpu_model, cpu_params = (build_model(cfg, "cpu"),
+                             _tree(params, lambda t: t.cpu()))
     hint, remat = best_hints(cfg, "train")
     if hint.get("attn_impl") != "repeat_kv" or remat != "dots":
         fail(f"best_hints(tinyllama-1.1b, train) = {hint}, {remat}")
     b, s, _ = G1_CASES[-1]
     data = SyntheticTokens(DataConfig(cfg.vocab_size, s, b, seed=0))
+    with hints.hints(**hint):
+        lc, gc_ = loss_and_grads(model, params, data.batch(0), remat=remat)
+        lh, gh = loss_and_grads(cpu_model, cpu_params, data.batch(0),
+                                remat=remat)
+    errs = _leaf_errors(torch, gc_, gh)
+    worst = max(errs, key=errs.get)
+    if abs(lc.item() - lh.item()) > 1e-4 or errs[worst] > GRAD_TOL:
+        fail(f"hinted loss_fn card vs CPU: loss {lc.item()} vs {lh.item()},"
+             f" gradient {worst} off by {errs[worst]:.3e} of its max")
+    log(f"card vs CPU, loss_fn gradients under {hint}, remat {remat} "
+        f"({HINT_TRAIN_LAYERS} of 22 layers, {b} x {s}): loss "
+        f"{lc.item():.6f} vs {lh.item():.6f}; worst leaf {worst} within "
+        f"{errs[worst]:.3e} of its largest gradient (tol {GRAD_TOL})")
+    del gc_, gh
     opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=10)
     losses = []
-    for m, p in ((model, params),
-                 (build_model(cfg, "cpu"), _tree(params, lambda t: t.cpu()))):
+    for m, p in ((model, params), (cpu_model, cpu_params)):
         _, step = make_train_step(m, opt_cfg, remat=remat)
         state = (p, adamw_init(p))
         if m is model:
@@ -2805,6 +2969,10 @@ MESH_FLASH = [FlashShape("mesh train, repeat_kv", MESH_B, MESH_S, True, H,
 #: length + 1 (the new token's position included)
 MESH_CONTIGUOUS = PagedShape("mesh decode", H, KV, D, C, MESH_S, 1)
 MESH_DECODE_READ = [n + 1 for n in MESH_DECODE_LENGTHS]
+#: the pipeline part: tinyllama-1.1b at full width and depth on a (1,)
+#: ("stage",) mesh, PIPE_B x MESH_S tokens in PIPE_M microbatches of 1 x
+#: MESH_S (the "mesh prefill" flash geometry of MESH_FLASH)
+PIPE_B, PIPE_M = 4, 4
 #: the port's dry run at full width: (arch, shape, --autotune)
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", False),
                 ("tinyllama-1.1b", "decode_32k", True),
@@ -2890,18 +3058,9 @@ def mesh_kernel_cases(torch, K, ref, gen, dev) -> dict:
         f"{D}, {MESH_CONTIGUOUS.cap} positions, f32 cache, lengths "
         f"{MESH_DECODE_READ}): max abs err {err:.3e} (tol {ATOL} + "
         f"{RTOL}*|plain|), repeats bitwise equal")
-    fwd, bwd = K["flash_attention"], K["flash_attention_bwd"]
     for fs in MESH_FLASH:
         err, (q, k, v) = flash_case(torch, K, ref, gen, dev, fs)
-        o, lse = fwd(q, k, v, causal=fs.causal, return_lse=True)
-        do = torch.randn(o.shape, generator=gen, device=dev)
-        got = bwd(q, k, v, o, lse, do, causal=fs.causal)
-        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, fs.causal)
-        torch.cuda.synchronize()
-        what = (f"flash_attention_bwd[{fs.label}: B={fs.b} S={fs.s} H={fs.h}"
-                f" KV={fs.kv} d={fs.d}]")
-        berr = [check_close(f"{what} {n}", g, w)
-                for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+        berr = flash_bwd_case(torch, K, ref, gen, dev, fs, q, k, v)
         errs["flash_attention"] = max(errs.get("flash_attention", 0.0), err)
         errs["flash_attention_bwd"] = max(
             errs.get("flash_attention_bwd", 0.0), *berr)
@@ -2910,71 +3069,19 @@ def mesh_kernel_cases(torch, K, ref, gen, dev) -> dict:
             f"repeats bitwise equal; backward dq/dk/dv "
             f"{'/'.join(f'{e:.3e}' for e in berr)} (tol {ATOL} + "
             f"{RTOL}*|plain|)")
-        del q, k, v, o, lse, do, got, want
+        del q, k, v
         torch.cuda.empty_cache()
     return errs
 
 
-@contextlib.contextmanager
 def mesh_geometry(torch, what):
-    """Records the geometry of every launch of kernel #6 (the forward
-    through ops and through its autograd wrapper, the backward through the
-    wrapper) and of kernel #3 inside, and fails on one that
-    mesh_kernel_cases did not check: flash at a MESH_FLASH shape in
-    float32, decode at MESH_CONTIGUOUS over MESH_DECODE_READ in float32.
-    The kernels' own functions stay as they are (each counts its launches
-    under its own name); ops' bindings and the wrapper are swapped."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
-    saved = {name: getattr(ops, name) for name in
-             ("flash_attention", "decode_attention", "FlashAttention")}
-    base, seen = saved["FlashAttention"], set()
-
-    def flash_key(kind, q, k, causal):
-        return (kind, q.shape[0], q.shape[2], k.shape[2], causal,
-                q.shape[1], k.shape[1], q.shape[3], q.dtype, k.dtype)
-
-    def flash(q, k, v, *, causal=True, **kwargs):
-        seen.add(flash_key("flash", q, k, causal))
-        return saved["flash_attention"](q, k, v, causal=causal, **kwargs)
-
-    def decode(q, k, v, lengths, **kwargs):
-        seen.add(("decode", q.shape[0], q.shape[1], k.shape[1], k.shape[2],
-                  q.shape[2], q.dtype, k.dtype, tuple(lengths.tolist())))
-        return saved["decode_attention"](q, k, v, lengths, **kwargs)
-
-    class Recorded(base):
-        @staticmethod
-        def forward(ctx, q, k, v, causal):
-            seen.add(flash_key("flash", q, k, causal))
-            return base.forward(ctx, q, k, v, causal)
-
-        @staticmethod
-        def backward(ctx, do):
-            q, k, v, o, lse = ctx.saved_tensors
-            seen.add(flash_key("flash backward", q, k, ctx.causal))
-            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
-                                             causal=ctx.causal)
-            return dq, dk, dv, None
-
-    ops.flash_attention, ops.decode_attention = flash, decode
-    ops.FlashAttention = Recorded
-    try:
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(ops, name, fn)
-    f32 = torch.float32
-    checked = {(kind, f.b, f.s, f.s, f.causal, f.h, f.kv, f.d, f32, f32)
-               for f in MESH_FLASH for kind in ("flash", "flash backward")}
-    m = MESH_CONTIGUOUS
-    checked.add(("decode", B, m.h, m.kv, m.cap, m.d, f32, f32,
-                 tuple(MESH_DECODE_READ)))
-    for key in sorted(seen - checked, key=str):
-        fail(f"{what}: a kernel ran at {key}, a geometry phase 3 did not "
-             "check")
-    log(f"{what}: {len(seen)} kernel geometries, each checked in phase 3: "
-        f"{sorted(seen, key=str)}")
+    """kernel_geometry at the mesh phase's geometries: flash forward and
+    backward at MESH_FLASH, decode at MESH_CONTIGUOUS over
+    MESH_DECODE_READ, all in float32 (mesh_kernel_cases)."""
+    m, f32 = MESH_CONTIGUOUS, torch.float32
+    return kernel_geometry(torch, what, flash_keys(torch, MESH_FLASH, True)
+                           | {("decode", B, m.h, m.kv, m.cap, m.d, f32, f32,
+                               tuple(MESH_DECODE_READ))})
 
 
 def _max_diff(torch, got, want) -> float:
@@ -3095,11 +3202,128 @@ def mesh_steps(torch, mesh, model, params, dev, K=None) -> dict:
     return launches
 
 
+def attention64(q, k, v, *, causal=True):
+    """Plain causal GQA attention in float64, a row at a time: (B, S, H,
+    d) queries over (B, S, KV, d) keys and values."""
+    import torch
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    rows = []
+    for i in range(b):
+        qg = q[i].double().reshape(s, kv, h // kv, d)
+        lg = torch.einsum("qkgd,skd->kgqs", qg, k[i].double()) / math.sqrt(d)
+        if causal:
+            lg = lg.masked_fill(~mask, float("-inf"))
+        rows.append(torch.einsum("kgqs,skd->qkgd", torch.softmax(lg, -1),
+                                 v[i].double()).reshape(s, h, d))
+    return torch.stack(rows)
+
+
+def pipeline_part(torch, K) -> dict:
+    """distributed.pipeline.pipelined_forward on a (1,) ("stage",) mesh of
+    the NCCL group: all 22 full-width tinyllama-1.1b layers, the dense
+    block (RMSNorm, attention, residual, MLP, residual: forward's body) as
+    layer_fn, on the token embedding of PIPE_B x MESH_S tokens from seed 0
+    in PIPE_M microbatches. y must equal the stack applied to each
+    microbatch bitwise (the same shapes: the same kernels and cuBLAS
+    choices); against the same stack in float64 (:func:`attention64`), y
+    must be no further than twice as far as the float32 stack applied to
+    the whole batch is, each measured in shares of 2e-5 + 2e-5·|ref|
+    (the whole-batch stack rounds otherwise, and 22 float32 layers carry
+    their rounding past that tolerance, whole batch or not; its distance
+    to y is printed). The flash forward must run once a layer a step,
+    layers / S x (M + S - 1), between a zero of the counts and their exact
+    check, at a geometry phase 3 checked. Returns the launches."""
+    from repro_torch.distributed.pipeline import (bubble_fraction,
+                                                  pipelined_forward)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh, mesh_name
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import (_ffn, attention_block,
+                                                unstack_layers)
+    t0 = time.monotonic()
+    mesh = make_mesh((1,), ("stage",))
+    stages = mesh.size(0)
+    model, params = tinyllama(torch)
+    cfg, dev = model.cfg, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (PIPE_B, MESH_S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    positions = torch.arange(MESH_S, device=dev)[None, :]
+
+    def block(lp, h):
+        x = layers.rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        h = h + attention_block(lp["attn"], x, cfg, positions, True)[0]
+        x = layers.rmsnorm(h, lp["ln2"], cfg.norm_eps)
+        return h + _ffn(lp["ffn"], x, cfg)[0]
+
+    def stack(h, dtype=torch.float32):
+        for lp in unstack_layers(params["layers"], cfg.num_layers):
+            h = block(_tree(lp, lambda t: t.to(dtype)), h)
+        return h
+
+    def stack64(h):
+        """The stack in float64: products and attention (the norms and
+        RoPE round through float32 inside, as written)."""
+        saved = ops.attention_prefill
+        ops.attention_prefill = attention64
+        try:
+            return stack(h.double(), torch.float64)
+        finally:
+            ops.attention_prefill = saved
+
+    def share(a, ref):
+        return ((a.double() - ref).abs()
+                / (ATOL + RTOL * ref.abs())).max().item()
+
+    with torch.no_grad():
+        x = layers.embed(params["embedding"], tokens)
+        per_micro = torch.cat([stack(m) for m in x.split(PIPE_B // PIPE_M)])
+        whole = stack(x)
+        exact = stack64(x)
+        zero_counts(K)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        with mesh_geometry(torch, "pipelined forward"):
+            y = pipelined_forward(block, params["layers"], x, mesh,
+                                  num_microbatches=PIPE_M)
+            torch.cuda.synchronize()
+        run_s = time.monotonic() - t1
+    steps = PIPE_M + stages - 1
+    counts = check_launches(K, "pipelined forward", {
+        "flash_attention": cfg.num_layers // stages * steps})
+    if y.shape != x.shape or not torch.isfinite(y).all():
+        fail(f"pipelined forward: shape {tuple(y.shape)} or non-finite")
+    if not torch.equal(y, per_micro):
+        fail("pipelined forward vs the per-microbatch stack: max abs diff "
+             f"{(y - per_micro).abs().max().item():.3e}, not bitwise equal")
+    pipe64, whole64 = share(y, exact), share(whole, exact)
+    if not pipe64 <= 2 * whole64:
+        fail(f"pipelined forward vs float64: {pipe64:.3f} of the tolerance "
+             f"{ATOL} + {RTOL}*|ref|, the whole-batch stack {whole64:.3f}")
+    log(f"pipelined forward on {mesh_name(mesh)} (NCCL): {cfg.num_layers} "
+        f"of 22 layers at full width, {PIPE_B} x {MESH_S} tokens in {PIPE_M} "
+        f"microbatches, {steps} steps (bubble fraction "
+        f"{bubble_fraction(stages, PIPE_M)}): bitwise equal to the "
+        f"per-microbatch stack; against float64 {pipe64:.3f} of {ATOL} + "
+        f"{RTOL}*|ref| (max abs err "
+        f"{(y.double() - exact).abs().max().item():.3e}, |ref| <= "
+        f"{exact.abs().max().item():.3f}), the whole-batch stack "
+        f"{whole64:.3f}; pipelined vs whole-batch {share(y, whole):.3f} "
+        f"(max abs err {(y - whole).abs().max().item():.3e}); the pipelined "
+        f"run {run_s:.3f} s, the part {time.monotonic() - t0:.1f} s")
+    del model, params, x, y, per_micro, whole, exact
+    torch.cuda.empty_cache()
+    return counts
+
+
 def mesh_phase(torch, K) -> dict:
     """NCCL with world size 1 (this process), a 1 x 1 ("data", "model")
     CUDA mesh, tinyllama-1.1b at full width cut to MESH_LAYERS layers:
-    :func:`mesh_steps` on it; then the dry run's cells. Returns the
-    launches."""
+    :func:`mesh_steps` on it; then :func:`pipeline_part` on a (1,)
+    ("stage",) mesh of the same group; then the dry run's cells. Returns
+    the launches."""
     import socket
 
     import torch.distributed as dist
@@ -3124,6 +3348,8 @@ def mesh_phase(torch, K) -> dict:
             launches = mesh_steps(torch, mesh, model, params,
                                   torch.device("cuda"), K)
         del model, params
+        torch.cuda.empty_cache()
+        add_counts(launches, pipeline_part(torch, K))
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()

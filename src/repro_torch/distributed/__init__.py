@@ -1,3 +1,3 @@
-"""The distributed layer: the hints and the per-cell hint table (copies)
-and the sharding rules with their DTensor placements. Pipelining waits
-for its own slice."""
+"""The distributed layer: the hints and the per-cell hint table (copies),
+the sharding rules with their DTensor placements, and the GPipe schedule
+over a stage axis (:mod:`~repro_torch.distributed.pipeline`)."""

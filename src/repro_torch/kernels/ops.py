@@ -214,16 +214,18 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     H, P), state (M, H, P, N)). The kernel on CUDA; the oracle
     ``ref.ssd_chunk_ref`` on the CPU (the JAX jnp backend's choice).
 
-    The kernel has no backward yet, so off the CPU a call that autograd would
-    record raises rather than return outputs without gradients: training
-    the ssm and hybrid families on the card waits for the SSD backward
-    kernel (ROADMAP.md §1 item 4)."""
+    The kernel has no backward, so off the CPU a call that autograd would
+    record raises rather than return outputs without gradients, as the JAX
+    package cannot differentiate its Pallas SSD kernel either and trains
+    the ssm and hybrid families on its jnp lowering (ROADMAP.md, "Beyond
+    the reference": the SSD backward kernel)."""
     if (x.device.type != "cpu" and torch.is_grad_enabled()
             and any(t.requires_grad for t in (x, dt, cum, b_, c_))):
         raise NotImplementedError(
-            "ssd_chunk_scan has no backward kernel yet: gradients through "
-            "the SSD on the card wait for the SSD backward (ROADMAP.md §1 "
-            "item 4); train the ssm and hybrid families on the CPU")
+            "ssd_chunk_scan has no backward kernel: the JAX package cannot "
+            "differentiate its Pallas SSD either (ROADMAP.md, \"Beyond the "
+            "reference\": the SSD backward kernel); train the ssm and hybrid "
+            "families on the CPU")
     if isinstance(x, DTensor):
         # local to a chunk (M, dim 0) and a head (dim 2 of x, dt, cum)
         mesh = x.device_mesh

@@ -8,8 +8,9 @@ hybrid (:mod:`~repro_torch.models.hybrid`) and encdec
 (:mod:`~repro_torch.models.encdec`): ``init``, ``forward``, ``loss_fn``,
 whole-prompt ``prefill``, and the serving steps on the paged pool or the
 contiguous cache, with the JAX bundle's dispatch. On the card the SSD
-kernel has no backward yet, so the ssm and hybrid families train on the
-CPU only (ROADMAP.md §1 item 4).
+kernel has no backward, as the JAX package's Pallas SSD has none, so the
+ssm and hybrid families train on the CPU only (ROADMAP.md, "Beyond the
+reference").
 
 Every step writes its new cache into the caller's tensors in place and
 returns the same dict; the write casts to the cache's own dtypes, the cast
