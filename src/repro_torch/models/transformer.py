@@ -35,6 +35,14 @@ both caches carry one spare slot at the index JAX points them at — a drop
 page past the pool's end, a drop position past each row's ``max_seq`` —
 and the dropped writes land there, at fixed shapes and with no host sync.
 Attention never reads it.
+
+The serving steps open the profiler ranges of
+:func:`repro_torch.telemetry.recorder.scope` while a profiler collects
+(nothing otherwise): ``model.embed``, ``model.attn.qkv`` (the input norm,
+projections, qk-norm, rope), ``model.attn.kv_write`` (the write index and
+the cache writes), ``model.attn.kernel``, ``model.attn.out``,
+``model.ffn`` (its norm and the FFN) and ``model.head``; the attention's
+four inside the paged blocks only.
 """
 from __future__ import annotations
 
@@ -46,6 +54,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import hints, mesh_ops
 from repro_torch.kernels import ops
 from repro_torch.models import layers, moe
+from repro_torch.telemetry.recorder import scope
 
 # ----------------------------------------------------------------- params
 
@@ -365,12 +374,16 @@ def attention_decode_block_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
     ignores.
     """
     positions = lengths[:, None]
-    q, k, v = _project_qkv(p, x, cfg, positions, rope_q=False)
-    _write(k_pages, k, write_index)
-    _write(v_pages, v, write_index)
-    o = ops.attention_decode_paged(q, k_pages, v_pages, block_tables,
-                                   lengths + 1, rope_theta=cfg.rope_theta)
-    return mesh_ops.einsum("bshe,hed->bsd", o, p["wo"])
+    with scope("model.attn.qkv"):
+        q, k, v = _project_qkv(p, x, cfg, positions, rope_q=False)
+    with scope("model.attn.kv_write"):
+        _write(k_pages, k, write_index)
+        _write(v_pages, v, write_index)
+    with scope("model.attn.kernel"):
+        o = ops.attention_decode_paged(q, k_pages, v_pages, block_tables,
+                                       lengths + 1, rope_theta=cfg.rope_theta)
+    with scope("model.attn.out"):
+        return mesh_ops.einsum("bshe,hed->bsd", o, p["wo"])
 
 
 def attention_prefill_chunk_block_paged(p: dict, x: torch.Tensor,
@@ -387,14 +400,19 @@ def attention_prefill_chunk_block_paged(p: dict, x: torch.Tensor,
     pads write only into the drop page, and their outputs are
     garbage."""
     c = x.shape[1]
-    positions = start_len[:, None] + torch.arange(c, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, cfg, positions, rope_q=False)
-    _write(k_pages, k, write_index)
-    _write(v_pages, v, write_index)
-    o = ops.attention_prefill_chunk_paged(q, k_pages, v_pages, block_tables,
-                                          start_len,
-                                          rope_theta=cfg.rope_theta)
-    return mesh_ops.einsum("bshe,hed->bsd", o.to(x.dtype), p["wo"])
+    with scope("model.attn.qkv"):
+        positions = (start_len[:, None]
+                     + torch.arange(c, device=x.device)[None, :])
+        q, k, v = _project_qkv(p, x, cfg, positions, rope_q=False)
+    with scope("model.attn.kv_write"):
+        _write(k_pages, k, write_index)
+        _write(v_pages, v, write_index)
+    with scope("model.attn.kernel"):
+        o = ops.attention_prefill_chunk_paged(q, k_pages, v_pages,
+                                              block_tables, start_len,
+                                              rope_theta=cfg.rope_theta)
+    with scope("model.attn.out"):
+        return mesh_ops.einsum("bshe,hed->bsd", o.to(x.dtype), p["wo"])
 
 
 def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -437,11 +455,14 @@ def _run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig,
     cache); ``token_mask`` (the step's ``active``) reaches the MoE FFN."""
     for i in range(cfg.num_layers):
         lp = layer_view(params["layers"], i)
-        h = layers.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        with scope("model.attn.qkv"):
+            h = layers.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         x = x + attend(i, lp["attn"], h)
-        h2 = layers.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn(lp["ffn"], h2, cfg, token_mask)[0]
-    return lm_logits(params, x, cfg)
+        with scope("model.ffn"):
+            h2 = layers.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+            x = x + _ffn(lp["ffn"], h2, cfg, token_mask)[0]
+    with scope("model.head"):
+        return lm_logits(params, x, cfg)
 
 
 # ---------------------------------------------------------------- forward
@@ -616,11 +637,13 @@ def decode_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
     cache) with the new K/V written into ``cache`` (from
     :func:`init_paged_cache`: its last page is the drop page) in place;
     inactive rows leave every page but the drop page untouched."""
-    x = layers.embed(params["embedding"], tokens)
+    with scope("model.embed"):
+        x = layers.embed(params["embedding"], tokens)
     _, pages, page = cache["k_pages"].shape[:3]
-    index = paged_write_index(lengths[:, None], block_tables, page,
-                              _write_mask(tokens.shape[0], 1, x.device,
-                                          active, None), pages - 1)
+    with scope("model.attn.kv_write"):
+        index = paged_write_index(lengths[:, None], block_tables, page,
+                                  _write_mask(tokens.shape[0], 1, x.device,
+                                              active, None), pages - 1)
     logits = _run_layers(params, x, cfg, lambda i, p, h:
                          attention_decode_block_paged(
                              p, h, cfg, cache["k_pages"][i],
@@ -639,13 +662,16 @@ def prefill_chunk_paged(params: dict, cache: dict, tokens: torch.Tensor,
     chunk's K/V written into ``cache`` (from :func:`init_paged_cache`) in
     place. Rows with ``active=False`` and tail pads beyond ``valid`` write
     only into the drop page, the pool's last."""
-    x = layers.embed(params["embedding"], tokens)
+    with scope("model.embed"):
+        x = layers.embed(params["embedding"], tokens)
     b, c = tokens.shape
     _, pages, page = cache["k_pages"].shape[:3]
-    positions = start_len[:, None] + torch.arange(c, device=x.device)[None, :]
-    index = paged_write_index(positions, block_tables, page,
-                              _write_mask(b, c, x.device, active, valid),
-                              pages - 1)
+    with scope("model.attn.kv_write"):
+        positions = (start_len[:, None]
+                     + torch.arange(c, device=x.device)[None, :])
+        index = paged_write_index(positions, block_tables, page,
+                                  _write_mask(b, c, x.device, active, valid),
+                                  pages - 1)
     logits = _run_layers(params, x, cfg, lambda i, p, h:
                          attention_prefill_chunk_block_paged(
                              p, h, cfg, cache["k_pages"][i],

@@ -32,7 +32,20 @@ What differs:
     goes through the hand-written paged kernels (``repro_torch.kernels``);
   * on the wall clock (no cost functions) a dispatch's span starts before
     the dispatch and a decode step's time is read after its argmax reaches
-    the host: the card runs behind the host until that sync.
+    the host: the card runs behind the host until that sync. The rows of
+    one batched prefill each get the dispatch's span; the rows of a decode
+    step get an even split of the step's, an accounting split that keeps
+    the busy time (the ``engine.decode`` scope is the step's true
+    interval);
+  * with a recorder the engine also records its scopes on its clock
+    (:meth:`TraceRecorder.scope`): ``engine.step`` and, inside it,
+    ``engine.admit`` (admission), ``engine.prefill`` (one a dispatch:
+    input staging and the model call up to its return; counts ``rows``,
+    the batch rows, ``width``, the dispatch's tokens a row, and ``useful``,
+    the rows' real tokens), ``engine.decode`` (the same for a decode step;
+    ``rows``, the rows decoded), ``engine.sync`` (the argmax reaching the
+    host) and ``engine.book`` (token bookkeeping and frees). Without one,
+    each scope site costs one None check.
 
 Hot path, as in the JAX engine: one ``prefill_chunk[_paged]`` dispatch per
 chunk (``stats.prefill_dispatches``), one full-batch ``decode_step[_paged]``
@@ -45,6 +58,7 @@ from __future__ import annotations
 
 import math
 import time as _time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -58,6 +72,8 @@ from repro_torch.serving.block_allocator import BlockAllocator, PoolExhausted
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import Request
 from repro_torch.telemetry.recorder import TraceRecorder
+
+_NO_SCOPE = nullcontext()
 
 
 @dataclass
@@ -287,6 +303,12 @@ class InferenceEngine:
         r.span(kind, req.app, req.request_id, t0, t1,
                chips=self._recorder_chips, flops=fl, hbm_bytes=by,
                tokens=tokens, ici_bytes=ici)
+
+    def _scope(self, name: str, **counts):
+        """The recorder's scope ``name`` on the engine clock, or a shared
+        no-op without a recorder."""
+        r = self._recorder
+        return _NO_SCOPE if r is None else r.scope(name, self.now, **counts)
 
     def _emit_kv(self) -> None:
         if self._recorder is not None and self.allocator is not None:
@@ -556,23 +578,26 @@ class InferenceEngine:
         for lo in range(0, len(piece), self.prefill_chunk):
             sub = piece[lo:lo + self.prefill_chunk]
             c = len(sub)
-            tokens = np.zeros((self.max_slots, c), np.int32)
-            tokens[slot] = np.asarray(sub, np.int32)
-            mask = np.zeros((self.max_slots,), bool)
-            mask[slot] = True
-            if self.paged:
-                self.allocator.touch(slot)
-                self._cow_guard(slot, int(self.lengths[slot]), c)
-            t0 = self.now()
-            if self.paged:
-                _, self.cache = self.model.prefill_chunk_paged(
-                    self.params, self.cache, self._dev(tokens),
-                    self._dev(self.lengths), self._dev(self.allocator.tables),
-                    self._dev(mask), None)
-            else:
-                _, self.cache = self.model.prefill_chunk(
-                    self.params, self.cache, self._dev(tokens),
-                    self._dev(self.lengths), self._dev(mask), None)
+            with self._scope("engine.prefill", rows=self.max_slots, width=c,
+                             useful=c):
+                tokens = np.zeros((self.max_slots, c), np.int32)
+                tokens[slot] = np.asarray(sub, np.int32)
+                mask = np.zeros((self.max_slots,), bool)
+                mask[slot] = True
+                if self.paged:
+                    self.allocator.touch(slot)
+                    self._cow_guard(slot, int(self.lengths[slot]), c)
+                t0 = self.now()
+                if self.paged:
+                    _, self.cache = self.model.prefill_chunk_paged(
+                        self.params, self.cache, self._dev(tokens),
+                        self._dev(self.lengths),
+                        self._dev(self.allocator.tables), self._dev(mask),
+                        None)
+                else:
+                    _, self.cache = self.model.prefill_chunk(
+                        self.params, self.cache, self._dev(tokens),
+                        self._dev(self.lengths), self._dev(mask), None)
             new_lengths = self.lengths.copy()
             new_lengths[slot] += c
             self.lengths = new_lengths
@@ -643,30 +668,34 @@ class InferenceEngine:
                 self._prefill_slot(slot, self.active[slot], c)
             return True
         width = max(c for _, c in plan)
-        tokens = np.zeros((self.max_slots, width), np.int32)
-        mask = np.zeros((self.max_slots,), bool)
-        valid = np.zeros((self.max_slots,), np.int32)
-        for slot, c in plan:
-            done_tok = self._partial.get(slot, 0)
-            piece = self._eff[slot][done_tok:done_tok + c]
-            tokens[slot, :c] = np.asarray(piece, np.int32)
-            mask[slot] = True
-            valid[slot] = c
+        with self._scope("engine.prefill", rows=self.max_slots, width=width,
+                         useful=sum(c for _, c in plan)):
+            tokens = np.zeros((self.max_slots, width), np.int32)
+            mask = np.zeros((self.max_slots,), bool)
+            valid = np.zeros((self.max_slots,), np.int32)
+            for slot, c in plan:
+                done_tok = self._partial.get(slot, 0)
+                piece = self._eff[slot][done_tok:done_tok + c]
+                tokens[slot, :c] = np.asarray(piece, np.int32)
+                mask[slot] = True
+                valid[slot] = c
+                if self.paged:
+                    self.allocator.touch(slot)
+                    self._cow_guard(slot, int(self.lengths[slot]), c)
+            # uniform widths skip the valid mask entirely, as in the JAX
+            # engine
+            val = (None if all(c == width for _, c in plan)
+                   else self._dev(valid))
+            t_disp = self.now()
             if self.paged:
-                self.allocator.touch(slot)
-                self._cow_guard(slot, int(self.lengths[slot]), c)
-        # uniform widths skip the valid mask entirely, as in the JAX engine
-        val = (None if all(c == width for _, c in plan)
-               else self._dev(valid))
-        if self.paged:
-            _, self.cache = self.model.prefill_chunk_paged(
-                self.params, self.cache, self._dev(tokens),
-                self._dev(self.lengths), self._dev(self.allocator.tables),
-                self._dev(mask), val)
-        else:
-            _, self.cache = self.model.prefill_chunk(
-                self.params, self.cache, self._dev(tokens),
-                self._dev(self.lengths), self._dev(mask), val)
+                _, self.cache = self.model.prefill_chunk_paged(
+                    self.params, self.cache, self._dev(tokens),
+                    self._dev(self.lengths), self._dev(self.allocator.tables),
+                    self._dev(mask), val)
+            else:
+                _, self.cache = self.model.prefill_chunk(
+                    self.params, self.cache, self._dev(tokens),
+                    self._dev(self.lengths), self._dev(mask), val)
         self.stats.prefill_dispatches += 1
         new_lengths = self.lengths.copy()
         for slot, c in plan:
@@ -676,7 +705,9 @@ class InferenceEngine:
         self.lengths = new_lengths
         for slot, c in plan:
             req = self.active[slot]
-            t0 = self.now()
+            # the virtual clock serializes the rows' costs; on the wall
+            # clock each row's span is the dispatch's
+            t0 = self.now() if self._use_vclock else t_disp
             self._advance("prefill", c, req)
             req.t_prefill.append(self.now())
             self._emit_span("prefill", req, c, t0, self.now())
@@ -688,14 +719,16 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- steps
     def step(self) -> list[tuple[int, int]]:
-        """One engine step. Returns [(request_id, token)] emitted."""
-        self.stats.steps += 1
-        emitted: list[tuple[int, int]] = []
+        """One engine step (the ``engine.step`` scope). Returns
+        [(request_id, token)] emitted."""
+        with self._scope("engine.step"):
+            return self._step()
 
-        # 1) admit waiting requests into free slots (zeroed state). Paged
-        #    cache: admission is ALSO gated on free pages — each request
-        #    reserves pages for its actual prompt (not the max_seq worst
-        #    case), so small requests keep flowing while a big one waits.
+    def _admit(self) -> None:
+        """Admit waiting requests into free slots (zeroed state). Paged
+        cache: admission is ALSO gated on free pages — each request
+        reserves pages for its actual prompt (not the max_seq worst case),
+        so small requests keep flowing while a big one waits."""
         for req in self._admit_order():
             free = [i for i, a in enumerate(self.active) if a is None]
             if not free:
@@ -762,6 +795,14 @@ class InferenceEngine:
                     self._recorder.instant(
                         "prefix_hit", req.app, req.request_id, t0,
                         tokens=hit, meta={"pages": len(hit_pages)})
+
+    def _step(self) -> list[tuple[int, int]]:
+        self.stats.steps += 1
+        emitted: list[tuple[int, int]] = []
+
+        # 1) admission
+        with self._scope("engine.admit"):
+            self._admit()
 
         # 2) prefill work — legacy one-slot-per-step, or budgeted multi-slot
         #    when the policy's step_budget() hook splits the step's tokens
@@ -848,77 +889,86 @@ class InferenceEngine:
                     self._eff.pop(i, None)
             decoding = [i for i in decoding if self.active[i] is not None]
         if decoding:
-            mask = np.zeros((self.max_slots,), bool)
-            tokens = np.zeros((self.max_slots, 1), np.int32)
-            for i in decoding:
-                mask[i] = True
-                req = self.active[i]
-                tokens[i, 0] = (req.tokens_out[-1] if req.tokens_out
-                                else int(req.prompt[-1]))
-            t_step0 = self.now()
-            if self.paged:
+            with self._scope("engine.decode", rows=len(decoding)):
+                mask = np.zeros((self.max_slots,), bool)
+                tokens = np.zeros((self.max_slots, 1), np.int32)
                 for i in decoding:
-                    self.allocator.touch(i)
-                logits, self.cache = self.model.decode_step_paged(
-                    self.params, self.cache, self._dev(tokens),
-                    self._dev(self.lengths), self._dev(self.allocator.tables),
-                    self._dev(mask))
-            else:
-                logits, self.cache = self.model.decode_step(
-                    self.params, self.cache, self._dev(tokens),
-                    self._dev(self.lengths), self._dev(mask))
+                    mask[i] = True
+                    req = self.active[i]
+                    tokens[i, 0] = (req.tokens_out[-1] if req.tokens_out
+                                    else int(req.prompt[-1]))
+                t_step0 = self.now()
+                if self.paged:
+                    for i in decoding:
+                        self.allocator.touch(i)
+                    logits, self.cache = self.model.decode_step_paged(
+                        self.params, self.cache, self._dev(tokens),
+                        self._dev(self.lengths),
+                        self._dev(self.allocator.tables), self._dev(mask))
+                else:
+                    logits, self.cache = self.model.decode_step(
+                        self.params, self.cache, self._dev(tokens),
+                        self._dev(self.lengths), self._dev(mask))
             # the one host sync of the decode loop: fetch the argmaxes. The
             # tokens reach the host only here, so the step's time is read
             # after it
-            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            with self._scope("engine.sync"):
+                nxt = torch.argmax(logits, dim=-1).cpu().numpy()
             self.stats.decode_syncs += 1
-            if self._req_cost is not None:
-                # shared hardware serializes service demand: the step costs
-                # the sum of every active row's per-token decode cost; each
-                # row's telemetry span covers its own serialized slice
-                for i in decoding:
-                    s0 = self.now()
-                    self._advance("decode", 1, self.active[i])
-                    self._emit_span("decode", self.active[i], 1, s0,
-                                    self.now())
-            else:
-                self._advance("decode", len(decoding))
-                if self._recorder is not None:
-                    # one batched dispatch: split the step interval across
-                    # rows so busy time is conserved (N overlapping spans
-                    # each claiming the full engine would overstate SMACT)
-                    dt = (self.now() - t_step0) / len(decoding)
-                    for j, i in enumerate(decoding):
-                        self._emit_span("decode", self.active[i], 1,
-                                        t_step0 + j * dt,
-                                        t_step0 + (j + 1) * dt)
-            t = self.now()
-            if self._last_decode_t is not None:
-                self.stats.max_decode_gap_s = max(
-                    self.stats.max_decode_gap_s, t - self._last_decode_t)
-            self._last_decode_t = t
-            self.lengths = self.lengths + mask  # rebind, never mutate
-            for i in decoding:
-                req = self.active[i]
-                tok = int(nxt[i]) % self.cfg.vocab_size
-                req.tokens_out.append(tok)
-                req.t_tokens.append(t)
-                if req.t_first_token is None:
-                    req.t_first_token = t
-                emitted.append((req.request_id, tok))
-                full = int(self.lengths[i]) >= self.max_seq - 1
-                if len(req.tokens_out) >= req.max_new_tokens or full:
-                    req.t_done = t
-                    self.done.append(req)
-                    if self.paged:
-                        self._publish_prefix(i)
-                        self.allocator.free_slot(i)
-                        self._emit_kv()
-                    self.active[i] = None
-                    self._partial.pop(i, None)
-                    self._eff.pop(i, None)
-            self.stats.decode_tokens += len(decoding)
+            with self._scope("engine.book"):
+                self._book(decoding, nxt, mask, t_step0, emitted)
         return emitted, len(decoding)
+
+    def _book(self, decoding: list[int], nxt: np.ndarray, mask: np.ndarray,
+              t_step0: float, emitted: list) -> None:
+        """After a decode step: its cost and spans, the rows' new lengths
+        and tokens (into ``emitted``), and the frees of finished rows."""
+        if self._req_cost is not None:
+            # shared hardware serializes service demand: the step costs
+            # the sum of every active row's per-token decode cost; each
+            # row's telemetry span covers its own serialized slice
+            for i in decoding:
+                s0 = self.now()
+                self._advance("decode", 1, self.active[i])
+                self._emit_span("decode", self.active[i], 1, s0,
+                                self.now())
+        else:
+            self._advance("decode", len(decoding))
+            if self._recorder is not None:
+                # one batched dispatch: split the step interval across
+                # rows so busy time is conserved (N overlapping spans
+                # each claiming the full engine would overstate SMACT)
+                dt = (self.now() - t_step0) / len(decoding)
+                for j, i in enumerate(decoding):
+                    self._emit_span("decode", self.active[i], 1,
+                                    t_step0 + j * dt,
+                                    t_step0 + (j + 1) * dt)
+        t = self.now()
+        if self._last_decode_t is not None:
+            self.stats.max_decode_gap_s = max(
+                self.stats.max_decode_gap_s, t - self._last_decode_t)
+        self._last_decode_t = t
+        self.lengths = self.lengths + mask  # rebind, never mutate
+        for i in decoding:
+            req = self.active[i]
+            tok = int(nxt[i]) % self.cfg.vocab_size
+            req.tokens_out.append(tok)
+            req.t_tokens.append(t)
+            if req.t_first_token is None:
+                req.t_first_token = t
+            emitted.append((req.request_id, tok))
+            full = int(self.lengths[i]) >= self.max_seq - 1
+            if len(req.tokens_out) >= req.max_new_tokens or full:
+                req.t_done = t
+                self.done.append(req)
+                if self.paged:
+                    self._publish_prefix(i)
+                    self.allocator.free_slot(i)
+                    self._emit_kv()
+                self.active[i] = None
+                self._partial.pop(i, None)
+                self._eff.pop(i, None)
+        self.stats.decode_tokens += len(decoding)
 
     def run(self, max_steps: int = 100_000) -> list[Request]:
         for _ in range(max_steps):

@@ -27,9 +27,6 @@ app-level SLOs. This package is that capability for the repro:
 * :mod:`repro_torch.telemetry.export` — :func:`telemetry_block` (the versioned
   ``telemetry`` block in result schema 1.3) and :func:`chrome_trace` /
   :func:`write_chrome_trace` (Chrome ``trace_event`` JSON).
-* :mod:`repro_torch.telemetry.host` — :class:`HostMonitor`, psutil sampling for
-  wall-clock runs, feeding ``host_cpu_pct``/``host_rss_mb`` counter
-  series into the trace bus when given a recorder.
 
 See docs/telemetry.md for the event model, timeline math, and the
 streaming/attribution pipelines.
@@ -37,7 +34,6 @@ streaming/attribution pipelines.
 from repro_torch.telemetry.export import (TELEMETRY_BINS, TELEMETRY_VERSION,
                                     chrome_trace, telemetry_block,
                                     write_chrome_trace)
-from repro_torch.telemetry.host import HostMonitor
 from repro_torch.telemetry.recorder import (EVENT_KINDS, TERMINAL_KINDS,
                                       WORK_KINDS, TraceEvent, TraceRecorder)
 from repro_torch.telemetry.requests import (BUCKETS, BlameTable, RequestAssembler,
@@ -52,7 +48,7 @@ from repro_torch.telemetry.timeline import (UtilizationTimeline, counter_timelin
 __all__ = [
     "BUCKETS", "EVENT_KINDS", "TERMINAL_KINDS", "WORK_KINDS",
     "TELEMETRY_BINS", "TELEMETRY_VERSION",
-    "BlameTable", "GKSketch", "HostMonitor", "P2Quantile",
+    "BlameTable", "GKSketch", "P2Quantile",
     "RequestAssembler", "RequestLifecycle", "StreamingPipeline",
     "TraceEvent", "TraceRecorder", "UtilizationTimeline",
     "attribution_from_trace", "chrome_trace", "counter_timeline",

@@ -55,9 +55,7 @@ prefix pages; ``tokens`` carries the prefill tokens skipped),
 ``ok``/``ttft_s``/``tpot_s``/``e2e_s``/``itl`` — so streaming consumers
 never need a second metrics path). Counters are named step series —
 both substrates emit ``kv_pages`` (suffix ``@<partition>`` on the
-engine) for the KV-pool occupancy timeline; real wall-clock runs add
-``host_cpu_pct`` / ``host_rss_mb`` via
-:class:`~repro.telemetry.host.HostMonitor`.
+engine) for the KV-pool occupancy timeline.
 
 Resilience events (repro.resilience): ``fault`` spans mark injected fault
 windows (app ``__faults__``, chips=0 — never chip-occupying work);
@@ -68,12 +66,30 @@ windows (app ``__faults__``, chips=0 — never chip-occupying work);
 Exactly one TERMINAL event (``finish``, ``cancel`` or ``shed``) closes
 every issued request's lifecycle — the invariant the per-request
 assembler's completeness accounting rests on.
+
+Scopes
+------
+The program's own work, nested: :meth:`TraceRecorder.scope` records one
+:class:`ScopeNode` (id, parent id, name, interval, counts) into
+``scopes``, apart from ``events`` and ``counters``, whose vocabulary
+and order stay the JAX package's. The serving engine opens
+``engine.step`` and, inside it, ``engine.admit``, ``engine.prefill``
+(one a dispatch), ``engine.decode``, ``engine.sync`` and
+``engine.book``. While a ``torch.profiler`` collects, every scope also
+opens a profiler range of its name behind ``rt.`` (:func:`scope`), so
+the program's intervals lie on the device trace's clock; code that holds
+no recorder (the model's step) opens such ranges alone.
 """
 from __future__ import annotations
 
+import time
+import weakref
 from collections import deque
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Iterator, Optional
+
+import torch
 
 #: canonical event kinds — always present (zero-filled) in count maps so
 #: the two substrates emit schema-identical telemetry blocks even when one
@@ -108,6 +124,44 @@ class TraceEvent:
 
 
 @dataclass
+class ScopeNode:
+    """One interval of the program's own work: ``parent`` is the id of the
+    scope open around it (None at the top), ``counts`` what its opener
+    counted (``rows``, ``width``, ...); ``t1`` is None while it is open."""
+    id: int
+    parent: Optional[int]
+    name: str
+    t0: float
+    t1: Optional[float] = None
+    counts: dict = field(default_factory=dict)
+
+
+#: what a scope's profiler range puts before its name
+RANGE_PREFIX = "rt."
+_NO_RANGE = nullcontext()
+_latest = None      # weak reference to the newest TraceRecorder
+
+
+def scope(name: str):
+    """The profiler range ``rt.<name>`` while a ``torch.profiler`` is
+    collecting, else a shared no-op, for code that holds no recorder.
+    The range is a plain host op (``_RecordFunctionFast``), not a user
+    annotation (``record_function``), which the profiler would also
+    mirror onto the device's timeline: the device's busy time and its
+    kernels read the same with the ranges as without them."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(RANGE_PREFIX + name)
+    return _NO_RANGE
+
+
+def latest() -> "Optional[TraceRecorder]":
+    """The newest :class:`TraceRecorder` still alive in the process: how a
+    reader that was handed no recorder (a benchmark's metric, read after
+    the engine is gone) finds the scopes of the run it reads."""
+    return None if _latest is None else _latest()
+
+
+@dataclass
 class TraceRecorder:
     """Event/counter store + subscriber bus; one per run.
 
@@ -119,12 +173,21 @@ class TraceRecorder:
     counters: dict = field(default_factory=dict)
     #: retained-window size; None = unbounded (the default sink keeps all)
     ring: Optional[int] = None
+    #: the program's scopes (:meth:`scope`), in the order they opened;
+    #: ring mode keeps the newest ``ring``
+    scopes: "list | deque" = field(default_factory=list, compare=False,
+                                   repr=False)
 
     def __post_init__(self):
+        global _latest
         if self.ring is not None:
             if self.ring <= 0:
                 raise ValueError(f"ring must be positive, got {self.ring}")
             self.events = deque(self.events, maxlen=int(self.ring))
+            self.scopes = deque(self.scopes, maxlen=int(self.ring))
+        self._open: list[int] = []       # ids of the open scopes, innermost last
+        self._n_scopes = len(self.scopes)
+        _latest = weakref.ref(self)
         self._sinks: list = []
         # incremental aggregates — exact even when the ring drops events
         self._counts: dict[str, int] = {}
@@ -152,6 +215,26 @@ class TraceRecorder:
             for name in sorted(self.counters):
                 for t, v in self.counters[name]:
                     on_counter(name, t, v)
+
+    # ----------------------------------------------------------- scopes
+    @contextmanager
+    def scope(self, name: str, clock: Callable[[], float] = time.monotonic,
+              **counts) -> Iterator[ScopeNode]:
+        """Record ``name``'s interval on ``clock`` (the engine passes its
+        ``now``) as a :class:`ScopeNode` child of the scope open around
+        it, with ``counts``, and open its profiler range (:func:`scope`)
+        inside. Sinks see no scope."""
+        node = ScopeNode(self._n_scopes, self._open[-1] if self._open
+                         else None, name, clock(), None, counts)
+        self._n_scopes += 1
+        self.scopes.append(node)
+        self._open.append(node.id)
+        try:
+            with scope(name):
+                yield node
+        finally:
+            self._open.pop()
+            node.t1 = clock()
 
     # ------------------------------------------------------------- emit
     def _emit(self, ev: TraceEvent) -> None:

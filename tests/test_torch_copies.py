@@ -37,13 +37,157 @@ COPIES = sorted([
     "roofline/analysis.py", "roofline/hw.py",
     "serving/block_allocator.py", "serving/prefix_cache.py",
     "serving/request.py", "serving/router.py",
-    "telemetry/__init__.py", "telemetry/export.py", "telemetry/host.py",
+    "telemetry/__init__.py", "telemetry/export.py",
     "telemetry/recorder.py", "telemetry/requests.py",
     "telemetry/streaming.py", "telemetry/timeline.py",
 ])
 
+#: the port's TraceRecorder: its scopes, beside the original's events
+RECORDER_SCOPES = [
+    ('''engine) for the KV-pool occupancy timeline; real wall-clock runs add
+``host_cpu_pct`` / ``host_rss_mb`` via
+:class:`~repro.telemetry.host.HostMonitor`.
+''', '''engine) for the KV-pool occupancy timeline.
+''', "the port has no HostMonitor (see telemetry/__init__.py)"),
+    ('''assembler's completeness accounting rests on.
+"""''', '''assembler's completeness accounting rests on.
+
+Scopes
+------
+The program's own work, nested: :meth:`TraceRecorder.scope` records one
+:class:`ScopeNode` (id, parent id, name, interval, counts) into
+``scopes``, apart from ``events`` and ``counters``, whose vocabulary
+and order stay the JAX package's. The serving engine opens
+``engine.step`` and, inside it, ``engine.admit``, ``engine.prefill``
+(one a dispatch), ``engine.decode``, ``engine.sync`` and
+``engine.book``. While a ``torch.profiler`` collects, every scope also
+opens a profiler range of its name behind ``rt.`` (:func:`scope`), so
+the program's intervals lie on the device trace's clock; code that holds
+no recorder (the model's step) opens such ranges alone.
+"""''', "the scopes, documented"),
+    ('''from collections import deque
+from dataclasses import dataclass, field
+from typing import Optional
+''', '''import time
+import weakref
+from collections import deque
+from contextlib import contextmanager, nullcontext
+from dataclasses import dataclass, field
+from typing import Callable, Iterator, Optional
+
+import torch
+''', "the scopes' imports; torch for the profiler's ranges"),
+    ('''
+
+@dataclass
+class TraceRecorder:''', '''
+
+@dataclass
+class ScopeNode:
+    """One interval of the program's own work: ``parent`` is the id of the
+    scope open around it (None at the top), ``counts`` what its opener
+    counted (``rows``, ``width``, ...); ``t1`` is None while it is open."""
+    id: int
+    parent: Optional[int]
+    name: str
+    t0: float
+    t1: Optional[float] = None
+    counts: dict = field(default_factory=dict)
+
+
+#: what a scope's profiler range puts before its name
+RANGE_PREFIX = "rt."
+_NO_RANGE = nullcontext()
+_latest = None      # weak reference to the newest TraceRecorder
+
+
+def scope(name: str):
+    """The profiler range ``rt.<name>`` while a ``torch.profiler`` is
+    collecting, else a shared no-op, for code that holds no recorder.
+    The range is a plain host op (``_RecordFunctionFast``), not a user
+    annotation (``record_function``), which the profiler would also
+    mirror onto the device's timeline: the device's busy time and its
+    kernels read the same with the ranges as without them."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(RANGE_PREFIX + name)
+    return _NO_RANGE
+
+
+def latest() -> "Optional[TraceRecorder]":
+    """The newest :class:`TraceRecorder` still alive in the process: how a
+    reader that was handed no recorder (a benchmark's metric, read after
+    the engine is gone) finds the scopes of the run it reads."""
+    return None if _latest is None else _latest()
+
+
+@dataclass
+class TraceRecorder:''', "the scope node, the module-level range for code "
+     "without a recorder, and the newest recorder for readers without one"),
+    ('''    ring: Optional[int] = None
+
+    def __post_init__(self):
+        if self.ring is not None:
+            if self.ring <= 0:
+                raise ValueError(f"ring must be positive, got {self.ring}")
+            self.events = deque(self.events, maxlen=int(self.ring))
+''', '''    ring: Optional[int] = None
+    #: the program's scopes (:meth:`scope`), in the order they opened;
+    #: ring mode keeps the newest ``ring``
+    scopes: "list | deque" = field(default_factory=list, compare=False,
+                                   repr=False)
+
+    def __post_init__(self):
+        global _latest
+        if self.ring is not None:
+            if self.ring <= 0:
+                raise ValueError(f"ring must be positive, got {self.ring}")
+            self.events = deque(self.events, maxlen=int(self.ring))
+            self.scopes = deque(self.scopes, maxlen=int(self.ring))
+        self._open: list[int] = []       # ids of the open scopes, innermost last
+        self._n_scopes = len(self.scopes)
+        _latest = weakref.ref(self)
+''', "the scope store, bounded in ring mode as the events are"),
+    ('''    # ------------------------------------------------------------- emit
+''', '''    # ----------------------------------------------------------- scopes
+    @contextmanager
+    def scope(self, name: str, clock: Callable[[], float] = time.monotonic,
+              **counts) -> Iterator[ScopeNode]:
+        """Record ``name``'s interval on ``clock`` (the engine passes its
+        ``now``) as a :class:`ScopeNode` child of the scope open around
+        it, with ``counts``, and open its profiler range (:func:`scope`)
+        inside. Sinks see no scope."""
+        node = ScopeNode(self._n_scopes, self._open[-1] if self._open
+                         else None, name, clock(), None, counts)
+        self._n_scopes += 1
+        self.scopes.append(node)
+        self._open.append(node.id)
+        try:
+            with scope(name):
+                yield node
+        finally:
+            self._open.pop()
+            node.t1 = clock()
+
+    # ------------------------------------------------------------- emit
+''', "the scopes: kept out of events and counters, which the engine's "
+     "tests hold equal to the JAX engine's"),
+]
+
 #: path -> [(original text, copy's text, reason)]
 DEVIATIONS = {
+    "telemetry/recorder.py": RECORDER_SCOPES,
+    "telemetry/__init__.py": [
+        ('''* :mod:`repro.telemetry.host` — :class:`HostMonitor`, psutil sampling for
+  wall-clock runs, feeding ``host_cpu_pct``/``host_rss_mb`` counter
+  series into the trace bus when given a recorder.
+''', "", "the port has no HostMonitor: nothing of the port constructs "
+         "it, and export.py zero-fills the host series without one"),
+        ('''from repro.telemetry.host import HostMonitor
+''', "", "the port has no HostMonitor"),
+        ('''    "BlameTable", "GKSketch", "HostMonitor", "P2Quantile",''',
+         '''    "BlameTable", "GKSketch", "P2Quantile",''',
+         "the port has no HostMonitor"),
+    ],
     "kernels/autotune.py": [
         ('''        import jax
         return str(jax.devices()[0].device_kind).replace(" ", "-").lower()''',
