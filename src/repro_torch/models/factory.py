@@ -262,7 +262,9 @@ class ModelBundle:
         """Advance every row's prefill by C tokens in one dispatch; the
         chunk's K/V is written into ``cache`` in place. ``valid``: per-row
         count of real tokens (multi-slot batched prefill). Returns
-        (logits (B, C, V), cache)."""
+        (logits (B, C, V), cache). Where :meth:`packs_prefill_rows`, only
+        the rows ``active`` marks are computed: the inputs are left as
+        they are, and the inactive rows' logits are unspecified."""
         self._no_pages()
         f = self.cfg.family
         if f == "hybrid":
@@ -273,9 +275,33 @@ class ModelBundle:
             return encdec.prefill_chunk_paged(params, cache, tokens,
                                               start_len, block_tables,
                                               self.cfg, active, valid)
+        if active is not None and self.packs_prefill_rows():
+            return self._packed_prefill(params, cache, tokens, start_len,
+                                        block_tables, active, valid)
         return transformer.prefill_chunk_paged(params, cache, tokens,
                                                start_len, block_tables,
                                                self.cfg, active, valid)
+
+    def _packed_prefill(self, params, cache, tokens, start_len,
+                        block_tables, active, valid):
+        """:func:`transformer.prefill_chunk_paged` on the active rows
+        alone, gathered into a batch of their own (the host reads
+        ``active`` once, a small device-to-host copy); their logits are
+        scattered back into a (B, C, V) tensor."""
+        rows = active.nonzero().flatten()
+        if rows.numel() in (0, tokens.shape[0]):
+            return transformer.prefill_chunk_paged(
+                params, cache, tokens, start_len, block_tables, self.cfg,
+                active, valid)
+
+        def pick(t):
+            return None if t is None else t.index_select(0, rows)
+
+        logits, cache = transformer.prefill_chunk_paged(
+            params, cache, pick(tokens), pick(start_len), pick(block_tables),
+            self.cfg, None, pick(valid))
+        out = logits.new_empty((tokens.shape[0], *logits.shape[1:]))
+        return out.index_copy_(0, rows, logits), cache
 
     def multi_slot_batchable(self) -> bool:
         """Can ``prefill_chunk(valid=...)`` batch several mid-prefill slots
@@ -289,6 +315,16 @@ class ModelBundle:
         if self.cfg.is_moe:
             return False
         return not (self.cfg.family == "hybrid" and self.cfg.moe_every > 0)
+
+    def packs_prefill_rows(self) -> bool:
+        """Does :meth:`prefill_chunk_paged` compute only the rows
+        ``active`` marks? True where rows are independent
+        (:meth:`multi_slot_batchable`) and the whole prefill state lives
+        in the page pool: the dense and vlm transformers. Hybrid's SSM
+        state and enc-dec's cross-KV are slot-resident, indexed by batch
+        row; MoE capacity couples the rows of a batch."""
+        return (self.multi_slot_batchable()
+                and self.cfg.family not in ("hybrid", "encdec", "ssm"))
 
     # ---------------------------------------------------------- dry-run IO
     def input_specs(self, shape: ShapeConfig) -> dict:

@@ -41,8 +41,10 @@ What differs:
     (:meth:`TraceRecorder.scope`): ``engine.step`` and, inside it,
     ``engine.admit`` (admission), ``engine.prefill`` (one a dispatch:
     input staging and the model call up to its return; counts ``rows``,
-    the batch rows, ``width``, the dispatch's tokens a row, and ``useful``,
-    the rows' real tokens), ``engine.decode`` (the same for a decode step;
+    the batch rows, ``width``, the dispatch's tokens a row, ``useful``,
+    the rows' real tokens, and ``computed``, the rows the model runs: the
+    planned slots' where the bundle packs them, else ``rows``),
+    ``engine.decode`` (the same for a decode step;
     ``rows``, the rows decoded), ``engine.sync`` (the argmax reaching the
     host) and ``engine.book`` (token bookkeeping and frees). Without one,
     each scope site costs one None check.
@@ -579,7 +581,7 @@ class InferenceEngine:
             sub = piece[lo:lo + self.prefill_chunk]
             c = len(sub)
             with self._scope("engine.prefill", rows=self.max_slots, width=c,
-                             useful=c):
+                             useful=c, computed=self._computed_rows(1)):
                 tokens = np.zeros((self.max_slots, c), np.int32)
                 tokens[slot] = np.asarray(sub, np.int32)
                 mask = np.zeros((self.max_slots,), bool)
@@ -611,6 +613,14 @@ class InferenceEngine:
             self._emit_span("prefill", req, c, t0, self.now())
         self._partial[slot] = upto
         return upto >= len(prompt)
+
+    def _computed_rows(self, planned: int) -> int:
+        """The batch rows the model computes in a prefill dispatch of
+        ``planned`` slots: those alone where the bundle packs the paged
+        dispatch's active rows (``packs_prefill_rows``), else every slot."""
+        if self.paged and self.model.packs_prefill_rows():
+            return planned
+        return self.max_slots
 
     def _prefill_budget_plan(self, prefilling: list[int],
                              budget: int) -> list[tuple[int, int]]:
@@ -669,7 +679,8 @@ class InferenceEngine:
             return True
         width = max(c for _, c in plan)
         with self._scope("engine.prefill", rows=self.max_slots, width=width,
-                         useful=sum(c for _, c in plan)):
+                         useful=sum(c for _, c in plan),
+                         computed=self._computed_rows(len(plan))):
             tokens = np.zeros((self.max_slots, width), np.int32)
             mask = np.zeros((self.max_slots,), bool)
             valid = np.zeros((self.max_slots,), np.int32)

@@ -105,15 +105,17 @@ def test_prefill_counts_follow_the_plan(model):
     together. Step 1 splits 8 over the two (4 each, capped at what is left:
     4 and 3) and gives the one token left to the first: pieces 5 and 3, one
     dispatch of 4 rows x 5, 8 useful. Step 2 finishes the first prompt's 6
-    in one piece: 4 rows x 6, 6 useful. Then only decode."""
+    in one piece: 4 rows x 6, 6 useful. Then only decode. The bundle
+    packs the active rows (``packs_prefill_rows``): the model computes 2
+    rows, then 1."""
     rec = TraceRecorder()
     eng = _engine(model, rec)
     reqs = _requests([11, 3])
     _serve(eng, reqs)
     pf = [s for s in rec.scopes if s.name == "engine.prefill"]
     assert [s.counts for s in pf] == [
-        {"rows": 4, "width": 5, "useful": 8},
-        {"rows": 4, "width": 6, "useful": 6}]
+        {"rows": 4, "width": 5, "useful": 8, "computed": 2},
+        {"rows": 4, "width": 6, "useful": 6, "computed": 1}]
     step_of = {s.id: s.parent for s in rec.scopes}
     tops = [s.id for s in rec.scopes if s.parent is None]
     assert [tops.index(step_of[s.id]) for s in pf] == [0, 1]
@@ -125,6 +127,24 @@ def test_prefill_counts_follow_the_plan(model):
     assert rows[0].t0 == rows[1].t0
     for e, s in ((rows[0], pf[0]), (rows[1], pf[0]), (rows[2], pf[1])):
         assert s.t0 <= e.t0 <= s.t1 <= e.t1
+
+
+def test_prefill_computes_every_row_without_packing():
+    """A MoE bundle keeps today's dispatch: the plan of step 1 falls back
+    to per-slot dispatches (pieces 5 and 3), then the first prompt's 6,
+    and the model computes every slot's row in each."""
+    cfg = dataclasses.replace(CONFIGS["moonshot-v1-16b-a3b"].reduced(),
+                              num_layers=2)
+    m = build_model(cfg, "cpu")
+    assert not m.packs_prefill_rows()
+    rec = TraceRecorder()
+    eng = _engine((m, m.init(torch.Generator().manual_seed(0))), rec)
+    _serve(eng, _requests([11, 3]))
+    pf = [s for s in rec.scopes if s.name == "engine.prefill"]
+    assert [s.counts for s in pf] == [
+        {"rows": 4, "width": 5, "useful": 5, "computed": 4},
+        {"rows": 4, "width": 3, "useful": 3, "computed": 4},
+        {"rows": 4, "width": 6, "useful": 6, "computed": 4}]
 
 
 def _ranges(prof):
