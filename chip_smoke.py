@@ -52,6 +52,16 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                 variant and copy width), R 1, 4095 and 4096, both dtypes,
                 rows aligned and 1 element off; each called twice, bitwise
                 equal; timed at 4096 x 2048 in float32 and bfloat16;
+              * the skinny GEMM of the model step's projections at 1, 3,
+                8 and 16 rows on chameleon-34b's decode products (fused
+                qkv, fused gate and up, down, wo, the head) and ragged
+                small ones, against the float64 product within the
+                float32 summation bound; each called twice, bitwise
+                equal; timed at 8 rows on the four main products (their
+                inputs checked too) beside the plain version and
+                torch.matmul; its launches are counted on every path that
+                follows, against SkinnyDispatches' count from the
+                dispatches' shapes;
               * the vlm, moe, hybrid and encdec families' geometry
                 (FAMILY_SHAPES): paged and contiguous decode / prefill at
                 chameleon-34b (64 heads over 8 KV heads of 128),
@@ -1040,6 +1050,7 @@ def kernel_phase(torch, F, K, ref):
     ssd_kernel_phase(torch, K, ref, gen, dev, out)
     flash_kernel_phase(torch, F, K, ref, gen, dev, out)
     rmsnorm_kernel_phase(torch, F, K, ref, gen, dev, out)
+    skinny_kernel_phase(torch, F, gen, dev, out)
     for name, err in family_kernel_cases(torch, F, K, ref, gen,
                                          dev).items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
@@ -1422,6 +1433,114 @@ def rmsnorm_kernel_phase(torch, F, K, ref, gen, dev, out):
             f"| bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     out["rmsnorm"] = dict(rows["float32"], max_abs_err=max(
         errs["float32"], rows["float32"]["max_abs_err"]))
+
+
+# the skinny GEMM's cases (K, widths, gated): chameleon-34b's decode
+# products, timed at 8 rows (SKINNY_TIMED), then ragged small ones: widths
+# below a tile and one past it, K of one 16-byte load and odd splits
+SKINNY_CASES = [(8192, (8192, 1024, 1024), False), (8192, (22016,), True),
+                (22016, (8192,), False), (8192, (8192,), False),
+                (8192, (65536,), False), (4, (4,), False),
+                (36, (12, 260, 4), False), (68, (36,), True),
+                (1028, (516,), False)]
+SKINNY_TIMED = {"gate_up 8192x22016": 1, "down 22016x8192": 2,
+                "wo 8192x8192": 3, "qkv 8192x(8192+2*1024)": 0}
+SKINNY_M = 8                    # the decode step's rows in both cells
+
+
+def skinny_check(torch, name, got, x, ws, gated):
+    """The kernel's outputs against the float64 product, within the float32
+    summation bound (tests/test_torch_skinny_gemm.py's): 4·sqrt(K)·u·
+    (|x|·|w|) a product, propagated through silu(g)·u where ``gated``.
+    Returns the largest absolute error (``max_abs_err``) and the largest
+    share of the bound (``bound_share``) over the outputs."""
+    x64 = x.double()
+    unit = 4 * x.shape[1] ** 0.5 * 2.0 ** -24
+    prods = [x64 @ w.double() for w in ws]
+    bounds = [unit * (x64.abs() @ w.double().abs()) for w in ws]
+    if gated:
+        (g, u), (dg, du) = prods, bounds
+        sig = torch.sigmoid(g)
+        out = g * sig * u
+        prods = [out]
+        bounds = [(sig * (1 + g * (1 - sig)) * u).abs() * dg
+                  + (g * sig).abs() * du + 4 * 2.0 ** -24 * out.abs()]
+    worst = {"max_abs_err": 0.0, "bound_share": 0.0}
+    for o, t, b in zip(got, prods, bounds):
+        if not torch.isfinite(o).all():
+            fail(f"{name}: non-finite kernel output")
+        err = (o.double() - t).abs()
+        share = (err / b).max().item()
+        if share > 1:
+            fail(f"{name}: kernel error {share:.2f} times the float32 bound")
+        worst["bound_share"] = max(worst["bound_share"], share)
+        worst["max_abs_err"] = max(worst["max_abs_err"], err.max().item())
+    return worst
+
+
+def skinny_kernel_phase(torch, F, gen, dev, out):
+    """The skinny GEMM (csrc/skinny_gemm.cu) at 1, 3, 8 and 16 rows on
+    every case, each called twice (bitwise equal); row #8 at SKINNY_M rows
+    on chameleon-34b's four main products: kernel (its timed inputs held
+    to the float64 product like the others), plain version, torch.matmul
+    of the same products (the library yardstick) and the bound (the
+    weights' bytes at 3.35 TB/s). ``max_abs_err``: the largest absolute
+    error against the float64 product; ``bound_share``: the largest share
+    of the float32 summation bound."""
+    from repro_torch.kernels import skinny_gemm as sg
+    worst = {"max_abs_err": 0.0, "bound_share": 0.0}
+    timed_rows = {}
+
+    def checked(what, x, ws, gated):
+        got = sg.skinny_gemm(x, ws, gated)
+        torch.cuda.synchronize()
+        got = (got,) if gated else got
+        err = skinny_check(torch, what, got, x, ws, gated)
+        for key in worst:
+            worst[key] = max(worst[key], err[key])
+        again = sg.skinny_gemm(x, ws, gated)
+        again = (again,) if gated else again
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{what}: two calls differ")
+        return err
+
+    for i, (k, ns, gated) in enumerate(SKINNY_CASES):
+        ws = [0.02 * torch.randn((k, n), generator=gen, device=dev)
+              for n in (ns * 2 if gated else ns)]
+        tag = f"K={k} N={ns}{' gated' if gated else ''}"
+        for m in (1, 3, SKINNY_M, 16):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            checked(f"skinny_gemm[M={m} {tag}]", x, ws, gated)
+        for label, j in SKINNY_TIMED.items():
+            if j != i:
+                continue
+            x = torch.randn((SKINNY_M, k), generator=gen, device=dev)
+            err = checked(f"skinny_gemm[timed M={SKINNY_M} {tag}]", x, ws,
+                          gated)
+            byts = sum(w.numel() for w in ws) * 4 + x.numel() * 4 + sum(
+                SKINNY_M * n * 4 for n in (ns if not gated else ns[:1]))
+            timed_rows[label] = dict(row(
+                err["max_abs_err"],
+                timed_ms(torch, lambda: sg.skinny_gemm(x, ws, gated)),
+                timed_ms(torch, lambda: sg.skinny_gemm_ref(x, ws, gated)),
+                bound_entry(byts, 2 * SKINNY_M * k * sum(
+                    w.shape[1] for w in ws)),
+                timed_ms(torch, lambda: [torch.matmul(x, w) for w in ws])),
+                bound_share=err["bound_share"])
+        del ws
+    log(f"skinny_gemm: {len(SKINNY_CASES) * 4 + len(SKINNY_TIMED)} cases "
+        f"(M 1/3/8/16, and the timed inputs) within "
+        f"{worst['bound_share']:.3f} of the float32 bound, max abs err "
+        f"{worst['max_abs_err']:.3e}; each called twice, bitwise equal")
+    for label, r in timed_rows.items():
+        log(f"skinny_gemm M={SKINNY_M} {label}: kernel {r['ms']:.5f} ms | "
+            f"plain {r['plain_ms']:.5f} ms | torch.matmul "
+            f"{r['library_ms']:.5f} ms | bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it) | "
+            f"max abs err {r['max_abs_err']:.3e}")
+    first = timed_rows["gate_up 8192x22016"]
+    out["skinny_gemm"] = dict(first, **worst, shapes=timed_rows)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -2124,14 +2243,135 @@ def _tree(node, fn):
 
 
 # ------------------------------------------------------------------ phase 5
+def skinny_projections(cfg, part: str = "decoder") -> int:
+    """Skinny GEMM launches of one pass of at most 16 rows through the
+    model (``part`` "encoder": enc-dec's encoder alone): one for qkv and
+    one for wo an attention layer, one for gate and up and one for down a
+    dense FFN (a MoE FFN's shared experts alone: the routed experts keep
+    their own products), one for an untied head (a tied head reads the
+    embedding transposed, which the kernel does not take); a product
+    whose widths are not all multiples of 4 takes none."""
+    from repro_torch.models import hybrid
+
+    def ok(*widths):
+        return all(n >= 4 and n % 4 == 0 for n in widths)
+    d = cfg.d_model
+    head = int(ok(d, cfg.padded_vocab))
+    if cfg.family == "ssm":             # no attention, no FFN
+        return 0 if cfg.tie_embeddings else head
+    e = cfg.resolved_head_dim
+    attn = 2 * ok(d, cfg.num_heads * e, cfg.num_kv_heads * e)
+
+    def mlp(f):
+        return 2 * ok(d, f)
+    shared = (mlp(cfg.moe_d_ff * cfg.num_shared_experts)
+              if cfg.num_shared_experts else 0)
+    if cfg.family == "encdec":
+        n = (cfg.num_encoder_layers if part == "encoder"
+             else cfg.num_decoder_layers)
+        return n * (attn + mlp(cfg.d_ff)) + (head if part != "encoder"
+                                             else 0)
+    if cfg.family == "hybrid":
+        period = sum(attn * hybrid._is_attn(cfg, i)
+                     + (shared if hybrid._is_moe(cfg, i) else mlp(cfg.d_ff))
+                     for i in range(hybrid._period(cfg)))
+        return hybrid.num_blocks(cfg) * period + head
+    ffn = shared if cfg.is_moe else mlp(cfg.d_ff)
+    return cfg.num_layers * (attn + ffn) + (0 if cfg.tie_embeddings
+                                            else head)
+
+
+class SkinnyDispatches:
+    """The skinny GEMM launches that the model's dispatches since the last
+    zero_counts must have made, from each dispatch's shapes alone: where
+    it runs on the card, on float32 weights that are not DTensors and
+    outside autograd, every pass of at most 16 rows makes
+    ``skinny_projections`` launches, a wider one none. A decode step is
+    one pass of its B rows; a prefill chunk one pass of B x C rows, or of
+    the active rows x C where the paged bundle packs them; enc-dec's chunk
+    steps its decoder over B rows C times; a whole-sequence prefill or
+    forward is one pass of B x S rows (and enc-dec's encoder one of B x
+    frames). It wraps ModelBundle's dispatch methods while installed; a
+    dispatch inside another counts with the outer one."""
+    METHODS = ("decode_step", "decode_step_paged", "prefill_chunk",
+               "prefill_chunk_paged", "prefill", "forward")
+
+    def __init__(self):
+        self.n = 0
+        self._depth = 0
+
+    def install(self):
+        import torch
+        from repro_torch.models.factory import ModelBundle
+        from torch.distributed.tensor import DTensor
+        for name in self.METHODS:
+            orig = getattr(ModelBundle, name)
+
+            def wrapped(bundle, params, *args, _orig=orig, _name=name,
+                        **kw):
+                if self._depth == 0:
+                    leaf = params["embedding"]
+                    if (leaf.is_cuda and leaf.dtype == torch.float32
+                            and not isinstance(leaf, DTensor)
+                            and not (torch.is_grad_enabled()
+                                     and leaf.requires_grad)):
+                        self.n += self.expected(bundle, _name, args, kw)
+                self._depth += 1
+                try:
+                    return _orig(bundle, params, *args, **kw)
+                finally:
+                    self._depth -= 1
+            setattr(ModelBundle, name, wrapped)
+        return self
+
+    @staticmethod
+    def expected(bundle, name, args, kw) -> int:
+        cfg = bundle.cfg
+        if name in ("prefill", "forward"):
+            batch = args[0]
+            x = batch.get("tokens")
+            b, s = (batch["embeds"] if x is None else x).shape[:2]
+            n = skinny_projections(cfg) * (b * s <= SKINNY_MAX_M)
+            if cfg.family == "encdec":
+                t = batch["frames"].shape[1]
+                n += skinny_projections(cfg, "encoder") * (
+                    b * t <= SKINNY_MAX_M)
+            return n
+        tokens = args[1]
+        b, c = tokens.shape[:2]
+        if name.startswith("decode_step"):
+            return skinny_projections(cfg) * (b <= SKINNY_MAX_M)
+        if cfg.family == "encdec":
+            return c * skinny_projections(cfg) * (b <= SKINNY_MAX_M)
+        active = args[4] if len(args) > 4 else kw.get("active")
+        if (name == "prefill_chunk_paged" and active is not None
+                and bundle.packs_prefill_rows()):
+            live = int(active.sum())
+            b = live if 0 < live < b else b
+        return skinny_projections(cfg) * (b * c <= SKINNY_MAX_M)
+
+
+#: the installed SkinnyDispatches (main), None before
+SKINNY = None
+#: the most rows a pass of the skinny GEMM takes (skinny_gemm.MAX_M)
+SKINNY_MAX_M = 16
+
+
 def zero_counts(K) -> None:
     for fn in K.values():
         fn.launches = 0
+    if SKINNY is not None:
+        SKINNY.n = 0
 
 
 def check_launches(K, path, want: dict) -> dict:
     """Each kernel's launches since zero_counts: exactly ``want`` (0 for
-    a kernel not named) and at least one for each named kernel."""
+    a kernel not named) and at least one for each named kernel. The skinny
+    GEMM's are SkinnyDispatches' count, whatever ``want`` says."""
+    want = dict(want)
+    want.pop("skinny_gemm", None)
+    if SKINNY is not None and SKINNY.n:
+        want["skinny_gemm"] = SKINNY.n
     got = {name: fn.launches for name, fn in K.items()}
     for name, n in got.items():
         if n != want.get(name, 0) or (name in want and n <= 0):
@@ -3090,6 +3330,20 @@ def _max_diff(torch, got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+@contextlib.contextmanager
+def plain_products():
+    """The model step's projections as ``ops.project_plain`` computes them
+    (the einsums and matmuls that the CPU and a DTensor take) while the
+    block runs, whatever the operands' device."""
+    from repro_torch.kernels import ops
+    saved = ops.project
+    ops.project = ops.project_plain
+    try:
+        yield
+    finally:
+        ops.project = saved
+
+
 def mesh_steps(torch, mesh, model, params, dev, K=None) -> dict:
     """One train step under best_hints(cfg, "train"), one whole-prompt
     prefill and one int8-KV decode step under best_hints(cfg, "decode"),
@@ -3099,7 +3353,10 @@ def mesh_steps(torch, mesh, model, params, dev, K=None) -> dict:
     within 1e-6 (the same kernels on the same shards: a 1 x 1 mesh should
     not even reorder a sum; the run prints whether they are bitwise
     equal). ``K``: the kernels' wrappers, whose launches are counted
-    exactly on the sharded runs only. Returns the launches."""
+    exactly on the sharded runs only. The unsharded runs compute the
+    model step's projections as ``ops.project_plain``, the einsums a
+    DTensor takes, so that the two sides run the same products
+    (``plain_products``). Returns the launches."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import hints, sharding
     from repro_torch.distributed.autotune import best_hints
@@ -3149,7 +3406,8 @@ def mesh_steps(torch, mesh, model, params, dev, K=None) -> dict:
         new_p, _, m = counted("mesh train step", {
             "flash_attention": 2 * n, "flash_attention_bwd": n},
             lambda: step(P, O, batch))
-        ref_p, _, ref_m = step(params, opt, {"tokens": tokens})
+        with plain_products():
+            ref_p, _, ref_m = step(params, opt, {"tokens": tokens})
     pairs = {"loss": (m["loss"], ref_m["loss"])}
     pairs.update({k: (v, dict(sharding._walk(ref_p))[k])
                   for k, v in sharding._walk(new_p)})
@@ -3160,7 +3418,8 @@ def mesh_steps(torch, mesh, model, params, dev, K=None) -> dict:
     prefill = make_prefill_step(model, max_seq=MESH_S)
     logits, _ = counted("mesh prefill", {"flash_attention": n},
                         lambda: prefill(P, batch))
-    ref_logits, _ = prefill(params, {"tokens": tokens})
+    with plain_products():
+        ref_logits, _ = prefill(params, {"tokens": tokens})
     agree(f"prefill ({MESH_B} x {MESH_S})", {"logits": (logits,
                                                        ref_logits)})
     del logits, ref_logits
@@ -3190,11 +3449,12 @@ def mesh_steps(torch, mesh, model, params, dev, K=None) -> dict:
         logits, C = counted("mesh decode step", {"decode_attention": n},
                             lambda: serve(P, C, dec["tokens"],
                                           dec["lengths"]))
-        ref_logits, ref_cache = serve(params, ref_cache,
-                                      tokens[:1, :b].reshape(b, 1),
-                                      torch.tensor(MESH_DECODE_LENGTHS,
-                                                   dtype=torch.int32,
-                                                   device=dev))
+        with plain_products():
+            ref_logits, ref_cache = serve(params, ref_cache,
+                                          tokens[:1, :b].reshape(b, 1),
+                                          torch.tensor(MESH_DECODE_LENGTHS,
+                                                       dtype=torch.int32,
+                                                       device=dev))
     pairs = {"logits": (logits, ref_logits)}
     pairs.update({k: (C[k], ref_cache[k]) for k in cache})
     agree(f"int8 decode step under {hint} ({b} rows, lengths "
@@ -3385,6 +3645,12 @@ KERNELS = {
     "rmsnorm": dict(
         source="src/repro_torch/kernels/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:19"),
+    "skinny_gemm": dict(
+        source="src/repro_torch/kernels/csrc/skinny_gemm.cu",
+        replaces="none: the JAX package leaves its projections to XLA "
+                 "(the einsums of src/repro/models/transformer.py and "
+                 "layers.py); a decode step's few rows against float32 "
+                 "weights are bound by the weights' bytes"),
 }
 
 
@@ -3399,6 +3665,7 @@ def wrappers():
         paged_prefill_attention
     from repro_torch.kernels.prefill_attention import prefill_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.skinny_gemm import skinny_gemm
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan
     return {"paged_decode_attention": paged_decode_attention,
             "paged_prefill_attention": paged_prefill_attention,
@@ -3407,7 +3674,8 @@ def wrappers():
             "ssd_chunk_scan": ssd_chunk_scan,
             "flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
-            "rmsnorm": rmsnorm}
+            "rmsnorm": rmsnorm,
+            "skinny_gemm": skinny_gemm}
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -3437,6 +3705,8 @@ def main() -> None:
     resolve_device("cuda")            # TF32 off for every float32 matmul
     timed("build", build_phase, build)
     K = wrappers()
+    global SKINNY
+    SKINNY = SkinnyDispatches().install()
     measured = timed("kernels", kernel_phase, torch, F, K, ref)
     engines, launches = {}, {}
     for path in PATHS:

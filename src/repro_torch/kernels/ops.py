@@ -9,7 +9,8 @@ first operand alone — there is no backend switch:
          ``prefill_attention``), compute the SSD chunk
          (``ssd_chunk_scan``), full-sequence attention with its gradient
          (``flash_attention``, ``flash_attention_bwd``) and RMSNorm
-         (``rmsnorm``);
+         (``rmsnorm``) and the model step's projections of at most 16
+         rows (``skinny_gemm``, through :func:`project`);
   cpu  — the plain path that mirrors the JAX package's jnp lowering: the
          functions of :mod:`repro_torch.models.attention` (after a gather
          through the block table, for the paged pool), the SSD oracle and
@@ -30,7 +31,10 @@ then runs on the DTensors as they are; on CUDA it raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.distributed import mesh_ops
@@ -43,6 +47,7 @@ from repro_torch.kernels.paged_prefill_attention import \
 from repro_torch.kernels.prefill_attention import prefill_attention
 from repro_torch.kernels.ref import rmsnorm_ref
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels import skinny_gemm
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 from repro_torch.models import attention
 
@@ -301,3 +306,79 @@ def attention_prefill_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
                                 block_tables, start_len,
                                 rope_theta=rope_theta)
     return o.transpose(1, 2)
+
+
+@functools.lru_cache(maxsize=16)
+def _contracted(eq: str | None) -> int:
+    """How many trailing dims of x ``eq`` contracts with the leading dims
+    of the weight (``x @ w``: one)."""
+    if eq is None:
+        return 1
+    (xs, ws), out = (t.split(",") for t in eq.replace(" ", "").split("->"))
+    return sum(c in ws and c not in out for c in xs)
+
+
+def project_plain(eq: str | None, x: torch.Tensor, *ws: torch.Tensor,
+                  gated: bool = False):
+    """:func:`project`'s products as the step always wrote them: the
+    einsums and matmuls of ``mesh_ops``, on any device (the CPU and
+    DTensor route)."""
+    if gated:
+        return F.silu(mesh_ops.matmul(x, ws[0])) * mesh_ops.matmul(x, ws[1])
+    outs = tuple(mesh_ops.einsum(eq, x, w) if eq is not None
+                 else mesh_ops.matmul(x, w) for w in ws)
+    return outs[0] if len(outs) == 1 else outs
+
+
+def project(eq: str | None, x: torch.Tensor, *ws: torch.Tensor,
+            gated: bool = False):
+    """The model step's projections: ``x`` against each weight of ``ws``
+    (1-3, read against the same x) as ``eq`` writes the product
+    (``torch.einsum``'s equation, x first; None: ``x @ w``), one output a
+    weight (a tuple for several); ``gated``: two weights, gate and up, and
+    the one output ``silu(x · gate) · (x · up)``. The weights keep their
+    stored layout: the contracted dims lead (``wq (d, h, e)``, ``wo (h, e,
+    d)``, ``w_gate (d, F)``), the rest are the output's.
+
+    The route, decided from what the operands show, in this order:
+
+      plain  — a tensor off CUDA (the CPU) or a DTensor:
+               :func:`project_plain`, the einsums and matmuls the step
+               always ran, bit for bit;
+      kernel — a CUDA float32 product of at most 16 rows of x (the decode
+               step's batch) whose layout the kernel takes
+               (``skinny_gemm.takes``), where autograd records nothing
+               (the kernel has no backward): ``skinny_gemm``, each weight
+               read once where it lies, qkv or gate and up in one launch;
+      matmul — any other CUDA product, training's included:
+               ``torch.matmul`` on the flattened views (a view of a
+               stacked leaf, never a copy of it).
+
+    ``project.routes`` counts the calls by route."""
+    if (isinstance(x, DTensor) or not x.is_cuda
+            or any(isinstance(w, DTensor) for w in ws)):
+        project.routes["plain"] += 1
+        return project_plain(eq, x, *ws, gated=gated)
+    nk = _contracted(eq)
+    lead = x.shape[:x.dim() - nk]
+    k = x.numel() // max(1, lead.numel())
+    x2 = x.reshape(-1, k)
+    w2 = [w.reshape(k, -1) for w in ws]
+    grad = torch.is_grad_enabled() and (
+        x.requires_grad or any(w.requires_grad for w in ws))
+    if not grad and skinny_gemm.takes(x2, w2, gated):
+        project.routes["kernel"] += 1
+        outs = skinny_gemm.launch(x2, w2, gated)
+    else:
+        project.routes["matmul"] += 1
+        outs = ((F.silu(x2 @ w2[0]) * (x2 @ w2[1]),) if gated
+                else tuple(x2 @ w for w in w2))
+    if gated:
+        return (outs if isinstance(outs, torch.Tensor) else outs[0]).reshape(
+            *lead, ws[0].shape[nk:].numel())
+    outs = tuple(o.reshape(*lead, *w.shape[nk:]) for o, w in zip(outs, ws))
+    return outs[0] if len(outs) == 1 else outs
+
+
+#: calls of :func:`project` by route since the counts were last set to 0
+project.routes = {"plain": 0, "kernel": 0, "matmul": 0}

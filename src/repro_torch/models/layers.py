@@ -6,7 +6,6 @@ dtypes, so both packages agree on the same weights.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.distributed import mesh_ops
 
@@ -70,10 +69,11 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU feed-forward."""
-    gate = mesh_ops.matmul(x, params["w_gate"])
-    up = mesh_ops.matmul(x, params["w_up"])
-    return mesh_ops.matmul(F.silu(gate) * up, params["w_down"])
+    """SwiGLU feed-forward: gate and up in one projection, then down
+    (``ops.project``; on the CPU the three matmuls as they always ran)."""
+    from repro_torch.kernels import ops     # ops imports this module
+    h = ops.project(None, x, params["w_gate"], params["w_up"], gated=True)
+    return ops.project(None, h, params["w_down"])
 
 
 # ---------------------------------------------------------------- embedding
@@ -84,10 +84,11 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(x: torch.Tensor, table_or_head: torch.Tensor,
             transpose: bool) -> torch.Tensor:
-    """Logits. ``transpose``: table is (V, D) tied-embedding form."""
-    if transpose:
-        return mesh_ops.matmul(x, table_or_head.T)
-    return mesh_ops.matmul(x, table_or_head)
+    """Logits (``ops.project``). ``transpose``: table is (V, D)
+    tied-embedding form."""
+    from repro_torch.kernels import ops     # ops imports this module
+    return ops.project(None, x, table_or_head.T if transpose
+                       else table_or_head)
 
 
 # ----------------------------------------------------------- cross entropy

@@ -174,9 +174,7 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, rope_q: bool = True):
     """``rope_q=False``: leave q un-rotated — the paged attention applies
     the rotation itself (k is always rotated before caching)."""
-    q = mesh_ops.einsum("bsd,dhe->bshe", x, p["wq"])
-    k = mesh_ops.einsum("bsd,dke->bske", x, p["wk"])
-    v = mesh_ops.einsum("bsd,dke->bske", x, p["wv"])
+    q, k, v = ops.project("bsd,dhe->bshe", x, p["wq"], p["wk"], p["wv"])
     if cfg.use_qk_norm:
         q = layers.rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = layers.rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -216,7 +214,7 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
             q = mesh_ops.anchor(q, "batch", None, h_ax, None)
         o = ops.attention_prefill(q, k, v, causal=causal)
     o = mesh_ops.anchor(o, "batch", None, "model", None)
-    out = mesh_ops.einsum("bshe,hed->bsd", o, p["wo"])
+    out = ops.project("bshe,hed->bsd", o, p["wo"])
     return out, (k, v)
 
 
@@ -322,7 +320,7 @@ def attention_decode_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
                                v_scale)
     o = ops.attention_decode(q, k_full, v_full, lengths + 1,
                              rope_theta=cfg.rope_theta)
-    return mesh_ops.einsum("bshe,hed->bsd", o, p["wo"])
+    return ops.project("bshe,hed->bsd", o, p["wo"])
 
 
 def _chunk_attend(p: dict, q: torch.Tensor, k_full: torch.Tensor,
@@ -333,7 +331,7 @@ def _chunk_attend(p: dict, q: torch.Tensor, k_full: torch.Tensor,
     sits at ``start_len + j``."""
     o = ops.attention_prefill_chunk(q, k_full, v_full, start_len,
                                     rope_theta=cfg.rope_theta)
-    return mesh_ops.einsum("bshe,hed->bsd", o.to(x_dtype), p["wo"])
+    return ops.project("bshe,hed->bsd", o.to(x_dtype), p["wo"])
 
 
 def attention_prefill_chunk_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -383,7 +381,7 @@ def attention_decode_block_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
         o = ops.attention_decode_paged(q, k_pages, v_pages, block_tables,
                                        lengths + 1, rope_theta=cfg.rope_theta)
     with scope("model.attn.out"):
-        return mesh_ops.einsum("bshe,hed->bsd", o, p["wo"])
+        return ops.project("bshe,hed->bsd", o, p["wo"])
 
 
 def attention_prefill_chunk_block_paged(p: dict, x: torch.Tensor,
@@ -412,7 +410,7 @@ def attention_prefill_chunk_block_paged(p: dict, x: torch.Tensor,
                                               block_tables, start_len,
                                               rope_theta=cfg.rope_theta)
     with scope("model.attn.out"):
-        return mesh_ops.einsum("bshe,hed->bsd", o.to(x.dtype), p["wo"])
+        return ops.project("bshe,hed->bsd", o.to(x.dtype), p["wo"])
 
 
 def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,

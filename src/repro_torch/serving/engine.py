@@ -44,10 +44,12 @@ What differs:
     the batch rows, ``width``, the dispatch's tokens a row, ``useful``,
     the rows' real tokens, and ``computed``, the rows the model runs: the
     planned slots' where the bundle packs them, else ``rows``),
-    ``engine.decode`` (the same for a decode step;
-    ``rows``, the rows decoded), ``engine.sync`` (the argmax reaching the
-    host) and ``engine.book`` (token bookkeeping and frees). Without one,
-    each scope site costs one None check.
+    ``engine.decode`` (the same for a decode step; ``rows``, the rows
+    decoded, and, set at its close, ``proj_calls``, the model step's
+    projections, and ``proj_kernel``, those that took the skinny GEMM
+    kernel: ``ops.project``'s routes), ``engine.sync`` (the argmax
+    reaching the host) and ``engine.book`` (token bookkeeping and frees).
+    Without one, each scope site costs one None check.
 
 Hot path, as in the JAX engine: one ``prefill_chunk[_paged]`` dispatch per
 chunk (``stats.prefill_dispatches``), one full-batch ``decode_step[_paged]``
@@ -68,7 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.bench.policy import SchedulingPolicy, get_policy
-from repro_torch.kernels import autotune
+from repro_torch.kernels import autotune, ops
 from repro_torch.models.factory import ModelBundle
 from repro_torch.serving.block_allocator import BlockAllocator, PoolExhausted
 from repro_torch.serving.prefix_cache import PrefixCache
@@ -900,7 +902,9 @@ class InferenceEngine:
                     self._eff.pop(i, None)
             decoding = [i for i in decoding if self.active[i] is not None]
         if decoding:
-            with self._scope("engine.decode", rows=len(decoding)):
+            with self._scope("engine.decode", rows=len(decoding)) as node:
+                routes = ops.project.routes
+                kernel0, calls0 = routes["kernel"], sum(routes.values())
                 mask = np.zeros((self.max_slots,), bool)
                 tokens = np.zeros((self.max_slots, 1), np.int32)
                 for i in decoding:
@@ -920,6 +924,9 @@ class InferenceEngine:
                     logits, self.cache = self.model.decode_step(
                         self.params, self.cache, self._dev(tokens),
                         self._dev(self.lengths), self._dev(mask))
+                if node is not None:
+                    node.counts["proj_kernel"] = routes["kernel"] - kernel0
+                    node.counts["proj_calls"] = sum(routes.values()) - calls0
             # the one host sync of the decode loop: fetch the argmaxes. The
             # tokens reach the host only here, so the step's time is read
             # after it

@@ -567,7 +567,7 @@ def test_build_names_libraries_by_sources_and_flags(monkeypatch, tmp_path):
                                "paged_decode_attention",
                                "paged_prefill_attention",
                                "prefill_attention", "rmsnorm",
-                               "ssd_chunk_scan"]
+                               "skinny_gemm", "ssd_chunk_scan"]
     # every header is hashed into every library's name
     assert sorted(p.name for p in build.CSRC.glob("*.cuh")) == [
         "attention.cuh", "flash_mma.cuh", "paged_attention.cuh"]
